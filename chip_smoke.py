@@ -8,7 +8,8 @@ Block3<u64>, SA sampling 2, k-mer LUT 3) over ``SMOKE_TEXT_SIZE`` bp
 bench), uploaded with ``to_device_torch(fm, "cuda", dense_lut_entries=1<<28,
 dense_host_entries=1<<20, sa_full="device", sa_fill_ratio=4)`` and queried
 with uniform 20-bp batches of 100k and 1M patterns through ``count`` and
-``locate_with_counts(use_stream=True)``.
+``locate_with_counts(use_stream=True)``.  Then the same blob through the wide
+(u64-position) engine and through the stream-decode LF walk.
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -26,6 +27,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    path's sigma=4 stream table and sigma^2=16 pair table, at 2M sorted keys
    (one B=1M search pass) including the key of the sentinel row and key n;
    results must be exactly equal.  Prints both times.
+5. wide: the main-path index is freed and the same blob is uploaded as a
+   wide index (``force_wide=True``, dense_k 10 from the host, sampled SA),
+   then the main path's batches go through the wide stream engine with the
+   same checks (wide-gather parity), and its counts and per-pattern location
+   sets must equal the main path's.  Counters are zeroed before the upload:
+   the segmented rank and decode modes must have launched.
+6. walk: the blob uploaded narrow with the sampled SA (no full SA), the
+   B=100k batch located with ``use_stream=True``: the LF walk decodes
+   through the decode mode, whose counter must rise, and the location sets
+   must equal the main path's.
+7. segmented kernel: the segmented modes against their plain version on a
+   seeded synthetic sigma=4 table of 2^25 + 2^20 rows (3 segments, keys
+   beyond 2^32), 2M sorted keys including both sides of each segment
+   boundary, 2^32 - 1, 2^32, 2^32 + 1, the last key in the table and one
+   beyond it; exactly equal.  Prints both times.
+8. opt-in, with ``SMOKE_WIDE_TEXT_SIZE`` (> 2^32, e.g. 4.3e9): a u64 blob
+   over that many bp (seed 42, built and cached under ``bench_cache/``) is
+   uploaded without ``force_wide`` and put through phase 5's checks with
+   half the patterns starting above 2^32; some located positions must be
+   >= 2^32.  Off by default: the host build takes long and needs ~19
+   bytes of host memory per bp, more than a 96 GiB host has at 4.3e9.
 
 The last lines are the kernel summary (JSON), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
@@ -42,14 +64,19 @@ import numpy as np
 
 T_START = time.time()
 TEXT_SIZE = int(float(os.environ.get("SMOKE_TEXT_SIZE", "1e8")))
+WIDE_TEXT_SIZE = int(float(os.environ.get("SMOKE_WIDE_TEXT_SIZE", "0")))
 SEED = 42
 PATTERN_LEN = 20
 BATCHES = (100_000, 1_000_000)
+WALK_BATCH = 100_000
 N_ORACLE = 1000
 N_RECHECK = 200
 CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench_cache")
 KERNEL_KEYS = 1 << 21
+SEG_ROWS = (1 << 25) + (1 << 20)  # 3 segments of 2^24 rows; keys reach 2^32 + 2^27
 DEVICE = "cuda"
+JOIN_SRC = "sview_fmindex_tpu_torch/csrc/join.cu"
+JOIN_TPU = "sview_fmindex_tpu/ops/stream_join.py:297"
 
 
 def check(cond, msg: str) -> None:
@@ -84,36 +111,53 @@ def build_phase() -> None:
         f"(nvcc {secs:.2f} s): {'; '.join(regs)}")
 
 
-def get_text() -> np.ndarray:
-    """uint8 [TEXT_SIZE], the bench's generator (seed 42, ACGT)."""
-    path = os.path.join(CACHE_DIR, f"text_{TEXT_SIZE}_{SEED}.bin")
+def get_text(size: int) -> np.ndarray:
+    """uint8 [size] ACGT text from seed 42: the bench's generator up to
+    2^31 bp, larger texts in 2^28-byte chunks (bounded host memory)."""
+    path = os.path.join(CACHE_DIR, f"text_{size}_{SEED}.bin")
     if not os.path.exists(path):
         rng = np.random.default_rng(SEED)
-        text = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=TEXT_SIZE)]
+        acgt = np.frombuffer(b"ACGT", np.uint8)
         os.makedirs(CACHE_DIR, exist_ok=True)
-        text.tofile(path)
+        tmp = f"{path}.tmp{os.getpid()}"
+        if size <= 2**31:
+            acgt[rng.integers(0, 4, size=size)].tofile(tmp)
+        else:
+            with open(tmp, "wb") as f:
+                for a in range(0, size, 1 << 28):
+                    acgt[rng.integers(0, 4, size=min(1 << 28, size - a), dtype=np.uint8)].tofile(f)
+        os.replace(tmp, path)
     return np.memmap(path, dtype=np.uint8, mode="r")
 
 
-def get_blob(ft, text: np.ndarray):
-    path = os.path.join(CACHE_DIR, f"index_{TEXT_SIZE}_{SEED}_b3u64_r2_k3.blob")
+def get_blob(ft, text: np.ndarray, position: str = "u32"):
+    size = text.shape[0]
+    tag = "" if position == "u32" else f"_{position}"
+    path = os.path.join(CACHE_DIR, f"index_{size}_{SEED}{tag}_b3u64_r2_k3.blob")
     if not os.path.exists(path):
         enc = ft.EncodingTable.from_symbols([b"A", b"C", b"G", b"T"])
         builder = ft.FmIndexBuilder(
-            len(text), enc.symbol_count(), enc, position="u32", block=ft.BLOCK3_U64,
+            size, enc.symbol_count(), enc, position=position, block=ft.BLOCK3_U64,
             suffix_array_config=ft.SuffixArrayConfig.compressed(2),
             lookup_table_config=ft.LookupTableConfig.kmer_size(3),
             sa_backend="native")
+        # the host build peaks near 19 bytes per bp (int64 SA and its
+        # shifted copy; two int64 text copies in the k-mer pass)
+        avail = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
+        log(f"[blob] building the {position} blob over {size} bp "
+            f"({avail / 2**30:.1f} GiB of host memory free)")
         t0 = time.perf_counter()
-        blob = builder.build(text)
         tmp = f"{path}.tmp{os.getpid()}"
-        with open(tmp, "wb") as f:
-            f.write(blob)
+        # built straight into the file: no second copy of the blob in memory
+        out = np.memmap(tmp, dtype=np.uint8, mode="w+", shape=(builder.blob_size(),))
+        builder.build(text, blob=out)
+        out.flush()
+        del out
         os.replace(tmp, path)
-        log(f"[main] built the blob in {time.perf_counter() - t0:.1f} s "
-            f"({len(blob) / 2**20:.0f} MiB)")
+        log(f"[blob] built the {position} blob over {size} bp in "
+            f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(path) / 2**20:.0f} MiB)")
     mm = np.memmap(path, dtype=np.uint8, mode="r")
-    return ft.FmIndex.load(mm, position="u32", block=ft.BLOCK3_U64, encoder_kind="table")
+    return ft.FmIndex.load(mm, position=position, block=ft.BLOCK3_U64, encoder_kind="table")
 
 
 def measure(fn, B: int, reps: int, windows: int = 5):
@@ -122,6 +166,14 @@ def measure(fn, B: int, reps: int, windows: int = 5):
     from sview_fmindex_tpu_torch.bench import timing
 
     return [B / timing.timeit(fn, reps=reps)[1] for _ in range(windows)]
+
+
+def location_sets(locs, pids, valid, n: int) -> np.ndarray:
+    """Every pattern's located positions as one sorted array of
+    ``pid * (n + 1) + loc``: equal arrays <=> equal per-pattern sets."""
+    import torch
+
+    return torch.sort(pids[valid] * (n + 1) + locs[valid])[0].cpu().numpy()
 
 
 def check_batch(torch, fm, dev, text, pats_np, patterns, counts, out) -> None:
@@ -156,29 +208,64 @@ def check_batch(torch, fm, dev, text, pats_np, patterns, counts, out) -> None:
               f"locations of pattern {i} vs host")
 
 
+def upload(torch, ft, fm, tag: str, **kwargs):
+    """Upload and log seconds per phase and device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dev = ft.to_device_torch(fm, DEVICE, **kwargs)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    phases = ", ".join(f"{k} {v:.2f}" for k, v in dev.upload_phases.items())
+    log(f"[{tag}] upload {upload_s:.2f} s ({phases}); wide={dev.meta.wide_pos}, "
+        f"dense_k={dev.meta.dense_k}, pair={dev.meta.pair_rows > 0}, "
+        f"sa_full={dev.meta.has_sa_full}; resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dev
+
+
+def run_batch(torch, fm, dev, text, tag: str, pats_np, engine: str):
+    """One batch through count + locate_with_counts(use_stream=True): every
+    check, then queries/s.  Returns (counts, location sets, the locate
+    output, seconds after start when the first call had answered)."""
+    from sview_fmindex_tpu_torch.ops.locate import expand_capacity
+
+    B = pats_np.shape[0]
+    patterns = torch.from_numpy(pats_np).to(DEVICE)
+    check(dev.engine_for(B, use_stream=True) == engine, f"engine is not {engine}")
+    t0 = time.perf_counter()
+    counts = dev.count(patterns, use_stream=True)
+    capacity = expand_capacity(counts.cpu().numpy())
+    out = dev.locate_with_counts(patterns, capacity=capacity, use_stream=True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    answered_at = time.time() - T_START
+    check_batch(torch, fm, dev, text, pats_np, patterns, counts, out)
+    reps = max(8, min(32, int(4e6 // B)))
+    cq = measure(lambda: dev.count(patterns, use_stream=True), B, reps)
+    lq = measure(lambda: dev.locate_with_counts(
+        patterns, capacity=capacity, use_stream=True), B, reps)
+    log(f"[{tag}] B={B}: checks OK (dropped 0, {N_RECHECK} text re-checks, gather "
+        f"parity, {N_ORACLE} host-oracle patterns); first call {warm_s:.3f} s; "
+        f"count {max(cq) / 1e6:.3f} Mq/s (worst window {min(cq) / 1e6:.3f}), "
+        f"locate {max(lq) / 1e6:.3f} Mq/s (worst window {min(lq) / 1e6:.3f}); "
+        f"{int(counts.sum())} hits, capacity {capacity}")
+    locs, pids, valid = out[:3]
+    return counts.cpu().numpy(), location_sets(locs, pids, valid, fm.text_len), out, answered_at
+
+
 def main_path(torch, ft) -> dict:
     from sview_fmindex_tpu_torch.ops import stream_join as sj
-    from sview_fmindex_tpu_torch.ops.locate import expand_capacity
     from sview_fmindex_tpu_torch.ops.rank import u32
 
-    text = get_text()
+    text = get_text(TEXT_SIZE)
     t0 = time.perf_counter()
     fm = get_blob(ft, text)
     log(f"[main] text {TEXT_SIZE} bp, blob ready in {time.perf_counter() - t0:.1f} s")
 
     sj.LAUNCHES.clear()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    dev = ft.to_device_torch(fm, DEVICE, dense_lut_entries=1 << 28,
-                             dense_host_entries=1 << 20, sa_full="device",
-                             sa_fill_ratio=4)
-    torch.cuda.synchronize()
-    upload_s = time.perf_counter() - t0
-    phases = ", ".join(f"{k} {v:.2f}" for k, v in dev.upload_phases.items())
-    log(f"[main] upload {upload_s:.2f} s ({phases}); dense_k={dev.meta.dense_k}, "
-        f"pair={dev.meta.pair_rows > 0}, sa_full={dev.meta.has_sa_full}; "
-        f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    dev = upload(torch, ft, fm, "main", dense_lut_entries=1 << 28,
+                 dense_host_entries=1 << 20, sa_full="device", sa_fill_ratio=4)
     r = fm.sampling_ratio
     check(torch.equal(u32(dev.sa[::r]), torch.tensor(fm.suffix_array.astype(np.int64),
                                                       device=DEVICE)),
@@ -187,42 +274,69 @@ def main_path(torch, ft) -> dict:
 
     rng = np.random.default_rng(SEED + 1)
     first_query_s = None
-    results = {}
+    batches = {}
     for B in BATCHES:
         starts = rng.integers(0, TEXT_SIZE - PATTERN_LEN, size=B)
         pats_np = np.ascontiguousarray(text[starts[:, None] + np.arange(PATTERN_LEN)])
-        patterns = torch.from_numpy(pats_np).to(DEVICE)
-        check(dev.engine_for(B, use_stream=True) == "pair-stream", "engine is not pair-stream")
-        t0 = time.perf_counter()
-        counts = dev.count(patterns, use_stream=True)
-        capacity = expand_capacity(counts.cpu().numpy())
-        out = dev.locate_with_counts(patterns, capacity=capacity, use_stream=True)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+        counts, sets, _, answered_at = run_batch(torch, fm, dev, text, "main", pats_np,
+                                                 "pair-stream")
         if first_query_s is None:
-            first_query_s = time.time() - T_START
-        check_batch(torch, fm, dev, text, pats_np, patterns, counts, out)
-        reps = max(8, min(32, int(4e6 // B)))
-        cq = measure(lambda: dev.count(patterns, use_stream=True), B, reps)
-        lq = measure(lambda: dev.locate_with_counts(
-            patterns, capacity=capacity, use_stream=True), B, reps)
-        results[B] = dict(count_qps=cq, locate_qps=lq, hits=int(counts.sum()))
-        log(f"[main] B={B}: checks OK (dropped 0, {N_RECHECK} text re-checks, gather "
-            f"parity, {N_ORACLE} host-oracle patterns); first call {warm_s:.3f} s; "
-            f"count {max(cq) / 1e6:.3f} Mq/s (worst window {min(cq) / 1e6:.3f}), "
-            f"locate {max(lq) / 1e6:.3f} Mq/s (worst window {min(lq) / 1e6:.3f}); "
-            f"{results[B]['hits']} hits, capacity {capacity}")
+            first_query_s = answered_at
+        batches[B] = dict(pats=pats_np, counts=counts, sets=sets)
     launches = dict(sj.LAUNCHES)
     log(f"[main] kernel launches on the main path: {launches}; "
         f"first query {first_query_s:.1f} s after start")
     check(launches.get("rank", 0) > 0, "rank-mode join kernel never launched")
     check(launches.get("decode", 0) > 0, "decode-mode join kernel never launched")
-    return dict(dev=dev, launches=launches)
+    return dict(fm=fm, text=text, dev=dev, launches=launches, batches=batches)
+
+
+def time_join(torch, join_fn, plain_fn, args) -> dict:
+    """Kernel and plain times in turns (kernel, plain, plain, kernel), 20
+    launches each, CUDA events."""
+    times = {}
+    for label, fn in (("ms", join_fn), ("plain_ms", plain_fn),
+                      ("plain_ms2", plain_fn), ("ms2", join_fn)):
+        fn(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        times[label] = start.elapsed_time(end) / 20
+    return times
+
+
+def kernel_case(torch, name, table, keys, payload, sigma, decode, launches, seg_base=None):
+    """One join mode against its plain version: exact equality, then times."""
+    from functools import partial
+
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    join = partial(sj.join, seg_base=seg_base)
+    plain = partial(sj.join_plain, seg_base=seg_base, seg_shift=sj._seg_shift())
+    rk, sk = join(table, keys, payload, sigma, decode)
+    rp, sp = plain(table, keys, payload, sigma, decode)
+    torch.cuda.synchronize()
+    err = int((rk - rp).abs().max())
+    if decode:
+        err = max(err, int((sk - sp).abs().max()))
+    check(err == 0, f"{name} (sigma={sigma}) differs from its plain version by {err}")
+    times = time_join(torch, join, plain, (table, keys, payload, sigma, decode))
+    mode = ("decode" if decode else "rank") + ("" if seg_base is None else "_seg")
+    log(f"[kernel] {name}: sigma={sigma} table {table.shape[0]}x{table.shape[1]}, "
+        f"{keys.shape[0]} sorted keys (max {int(keys[-1])}): exact (max_abs_err 0); "
+        f"kernel {times['ms']:.4f}/{times['ms2']:.4f} ms, plain "
+        f"{times['plain_ms']:.4f}/{times['plain_ms2']:.4f} ms")
+    return dict(name=name, route="cuda", source=JOIN_SRC, replaces=JOIN_TPU,
+                launches=launches.get(mode, 0), max_abs_err=err,
+                ms=min(times["ms"], times["ms2"]),
+                plain_ms=min(times["plain_ms"], times["plain_ms2"]))
 
 
 def kernel_phase(torch, dev, launches: dict) -> list[dict]:
-    from sview_fmindex_tpu_torch.ops import stream_join as sj
-
     rng = np.random.default_rng(SEED + 2)
     n = int(dev.count_arr[-1])
     special = torch.tensor([0, dev.sentinel - 1, dev.sentinel, dev.sentinel + 1, n],
@@ -230,43 +344,119 @@ def kernel_phase(torch, dev, launches: dict) -> list[dict]:
     keys = torch.cat([special, torch.from_numpy(
         rng.integers(0, n + 1, size=KERNEL_KEYS - special.shape[0])).to(DEVICE)])
     keys = torch.sort(keys)[0]
-    cases = [("join_rank", dev.pair_tbl, 16, False), ("join_decode", dev.stream_tbl, 4, True)]
     out = []
-    for name, table, sigma, decode in cases:
+    for name, table, sigma, decode in (("join_rank", dev.pair_tbl, 16, False),
+                                       ("join_decode", dev.stream_tbl, 4, True)):
         payload = None if decode else torch.from_numpy(
             rng.integers(0, sigma, size=KERNEL_KEYS)).to(DEVICE)
-        rk, sk = sj.join(table, keys, payload, sigma, decode)
-        rp, sp = sj.join_plain(table, keys, payload, sigma, decode)
-        torch.cuda.synchronize()
-        err = int((rk - rp).abs().max())
-        if decode:
-            err = max(err, int((sk - sp).abs().max()))
-        check(err == 0, f"{name} (sigma={sigma}) differs from its plain version by {err}")
-        times = {}
-        # in turns: kernel, plain, plain, kernel
-        for label, fn in (("ms", sj.join), ("plain_ms", sj.join_plain),
-                          ("plain_ms2", sj.join_plain), ("ms2", sj.join)):
-            fn(table, keys, payload, sigma, decode)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(20):
-                fn(table, keys, payload, sigma, decode)
-            end.record()
-            end.synchronize()
-            times[label] = start.elapsed_time(end) / 20
-        ms = min(times["ms"], times["ms2"])
-        plain_ms = min(times["plain_ms"], times["plain_ms2"])
-        mode = "decode" if decode else "rank"
-        log(f"[kernel] {name}: sigma={sigma} table {table.shape[0]}x{table.shape[1]}, "
-            f"{KERNEL_KEYS} sorted keys: exact (max_abs_err 0); kernel "
-            f"{times['ms']:.4f}/{times['ms2']:.4f} ms, plain "
-            f"{times['plain_ms']:.4f}/{times['plain_ms2']:.4f} ms")
-        out.append(dict(name=name, route="cuda", source="sview_fmindex_tpu_torch/csrc/join.cu",
-                        replaces="sview_fmindex_tpu/ops/stream_join.py:297",
-                        launches=launches.get(mode, 0), max_abs_err=err,
-                        ms=ms, plain_ms=plain_ms))
+        out.append(kernel_case(torch, name, table, keys, payload, sigma, decode, launches))
     return out
+
+
+def wide_checks(torch, ft, fm, text, tag: str, batches: dict, **upload_kw) -> dict:
+    """Upload ``fm`` as a wide index and put every batch through run_batch
+    on the wide stream engine; where ``batches`` carries the main path's
+    answers, the wide ones must equal them.  Returns the launch counts."""
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    sj.LAUNCHES.clear()
+    dev = upload(torch, ft, fm, tag, dense_lut_entries=1 << 28,
+                 dense_host_entries=1 << 20, **upload_kw)
+    check(dev.meta.wide_pos and dev.meta.dense_k == 10 and not dev.meta.has_sa_full,
+          "not a wide index with host dense seeds (dk 10) and a sampled SA")
+    for B, want in batches.items():
+        counts, sets, out, _ = run_batch(torch, fm, dev, text, tag, want["pats"], "wide-stream")
+        if "counts" in want:
+            check(np.array_equal(counts, want["counts"]), "wide counts != narrow counts")
+            check(np.array_equal(sets, want["sets"]), "wide location sets != narrow ones")
+            log(f"[{tag}] B={B}: counts and per-pattern location sets equal the main path's")
+        else:
+            locs, _, valid = out[:3]
+            above = int((locs[valid] >= 2**32).sum())
+            log(f"[{tag}] B={B}: {above} of {int(valid.sum())} located positions are >= 2^32")
+            check(above > 0, "no located position at or above 2^32")
+    launches = dict(sj.LAUNCHES)
+    log(f"[{tag}] kernel launches: {launches}")
+    check(launches.get("rank_seg", 0) > 0, "segmented rank mode never launched")
+    check(launches.get("decode_seg", 0) > 0, "segmented decode mode never launched")
+    check(not launches.get("rank") and not launches.get("decode"),
+          "a wide index launched a narrow join mode")
+    del dev
+    torch.cuda.empty_cache()
+    return launches
+
+
+def walk_phase(torch, ft, fm, text, main: dict) -> dict:
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    sj.LAUNCHES.clear()
+    dev = upload(torch, ft, fm, "walk", dense_lut_entries=1 << 28, dense_host_entries=1 << 20)
+    check(not dev.meta.has_sa_full, "the walk phase needs the sampled SA")
+    want = main["batches"][WALK_BATCH]
+    counts, sets, _, _ = run_batch(torch, fm, dev, text, "walk", want["pats"], "pair-stream")
+    check(np.array_equal(counts, want["counts"]), "walk counts != main path counts")
+    check(np.array_equal(sets, want["sets"]), "walk location sets != main path ones")
+    launches = dict(sj.LAUNCHES)
+    log(f"[walk] B={WALK_BATCH}: counts and location sets equal the main path's; "
+        f"kernel launches: {launches}")
+    check(launches.get("decode", 0) > 0, "the walk never launched the decode mode")
+    del dev
+    torch.cuda.empty_cache()
+    return launches
+
+
+def segmented_kernel_phase(torch, launches: dict) -> list[dict]:
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    sigma = 4
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    table = torch.randint(-2**31, 2**31, (SEG_ROWS, sj._rw(sigma)), generator=g,
+                          device=DEVICE).to(torch.int32)
+    # local checkpoints are counts below 2^31
+    table[:, :sigma] = torch.randint(0, 2**31, (SEG_ROWS, sigma), generator=g,
+                                     device=DEVICE).to(torch.int32)
+    n_segs = -(-SEG_ROWS // sj.SEG_BLOCKS)
+    seg_base = torch.randint(0, 2**35, (n_segs, sigma), generator=g, device=DEVICE)
+    end = SEG_ROWS * sj.SBL
+    special = [0, 2**32 - 1, 2**32, 2**32 + 1, end - 1, end]
+    for s in range(1, n_segs):
+        b = s * sj.SEG_BLOCKS * sj.SBL
+        special += [b - 1, b, b + 1]
+    special = torch.tensor(special, device=DEVICE)
+    keys = torch.cat([special, torch.randint(0, end + 1, (KERNEL_KEYS - special.shape[0],),
+                                             generator=g, device=DEVICE)])
+    keys = torch.sort(keys)[0]
+    check(n_segs == 3 and int(keys[-1]) == end, "the synthetic table is not 3 segments")
+    log(f"[kernel] segmented cases: {n_segs} segments of {sj.SEG_BLOCKS} rows, "
+        f"table {table.numel() * 4 / 2**30:.2f} GiB")
+    payload = torch.randint(0, sigma, (KERNEL_KEYS,), generator=g, device=DEVICE)
+    out = [kernel_case(torch, "join_rank_seg", table, keys, payload, sigma, False,
+                       launches, seg_base),
+           kernel_case(torch, "join_decode_seg", table, keys, None, sigma, True,
+                       launches, seg_base)]
+    del table
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_text_phase(torch, ft) -> None:
+    """Opt-in: a u64 blob over WIDE_TEXT_SIZE bp, served without force_wide."""
+    check(WIDE_TEXT_SIZE > 2**32 + 2**20, "SMOKE_WIDE_TEXT_SIZE must exceed 2^32")
+    text = get_text(WIDE_TEXT_SIZE)
+    t0 = time.perf_counter()
+    fm = get_blob(ft, text, position="u64")
+    log(f"[wide_text] text {WIDE_TEXT_SIZE} bp, u64 blob ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 4)
+    batches = {}
+    for B in BATCHES:
+        # half the patterns start above 2^32
+        starts = np.concatenate([
+            rng.integers(0, WIDE_TEXT_SIZE - PATTERN_LEN, size=B // 2),
+            rng.integers(2**32, WIDE_TEXT_SIZE - PATTERN_LEN, size=B - B // 2)])
+        batches[B] = dict(pats=np.ascontiguousarray(
+            text[starts[:, None] + np.arange(PATTERN_LEN)]))
+    wide_checks(torch, ft, fm, text, "wide_text", batches)
 
 
 def main() -> None:
@@ -276,8 +466,16 @@ def main() -> None:
     import sview_fmindex_tpu_torch as ft
 
     build_phase()
-    res = main_path(torch, ft)
-    kernels = kernel_phase(torch, res["dev"], res["launches"])
+    main_res = main_path(torch, ft)
+    kernels = kernel_phase(torch, main_res.pop("dev"), main_res["launches"])
+    torch.cuda.empty_cache()
+    fm, text = main_res["fm"], main_res["text"]
+    wide_launches = wide_checks(torch, ft, fm, text, "wide", main_res["batches"],
+                                force_wide=True)
+    walk_phase(torch, ft, fm, text, main_res)
+    kernels += segmented_kernel_phase(torch, wide_launches)
+    if WIDE_TEXT_SIZE:
+        wide_text_phase(torch, ft)
     check("jax" not in sys.modules, "the port imported JAX")
     log(f"[done] {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))

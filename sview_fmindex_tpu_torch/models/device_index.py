@@ -12,8 +12,14 @@ The blob's sections become device tensors:
 - ``kmer_tbl``, ``count_arr``, ``enc_table``, ``pair_c2``, ``pair_fix``:
   small int64 tables.
 
-Positions, ranks, counts and located positions come back as int64 (the
-JAX package returns uint32; the values are identical).
+Wide (u64-position) indexes (``meta.wide_pos``, ``ops/wide.py``) keep
+``fused`` as hi | lo | plane words, a segment-local ``stream_tbl`` with
+``seg_base`` int64 [n_segs, sigma], and ``sa``, ``kmer_tbl``, ``count_arr``,
+``dense_lo``/``dense_hi`` as int64 values.
+
+Positions, ranks, counts and located positions come back as int64 [B] /
+[capacity] for every index (the JAX package returns uint32, and uint32
+[2, ...] (hi, lo) lanes for wide indexes; the values are identical).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from ..ops import locate as locate_ops
 from ..ops import rank as rank_ops
 from ..ops import search as search_ops
 from ..ops import stream_join
+from ..ops import wide as wide_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,17 +57,68 @@ class IndexMeta:
     dense_k: int = 0  # dense seed-table k (0 = disabled)
     stream_rows: int = 0  # stream-table rows (0 = stream engine disabled)
     pair_rows: int = 0  # pair-table rows (0 = pair engine disabled)
+    pair_gather: bool = False  # the gather engine also ranks from the pair table
+    wide_pos: bool = False  # u64-position index (ops/wide.py)
     has_sa_full: bool = False  # full (r=1) SA resident on device
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A device tensor of its own holding ``a``, copied straight from the
+    host array (blob sections are read-only memmaps: no host copy first,
+    and a copy even on the CPU)."""
+    with warnings.catch_warnings():
+        # from_numpy warns on read-only arrays; the tensor is copied below
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(a)
+    return t.to(device, copy=True)
 
 
 def _i32(a: np.ndarray, device) -> torch.Tensor:
     """uint32 host array -> int32 device tensor with the same bits."""
-    return torch.tensor(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32),
-                        device=device)
+    return _upload(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32), device)
 
 
 def _i64(a, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(a, dtype=np.int64), device=device)
+    """Integer host array (uint64 values below 2^63 included) -> int64."""
+    a = np.asarray(a)
+    if a.dtype == np.uint64:
+        a = a.view(np.int64)
+    return _upload(np.ascontiguousarray(a, dtype=np.int64), device)
+
+
+def _lanes64(a) -> np.ndarray:
+    """The JAX package's uint32 [2, ...] (hi, lo) lanes -> int64 values."""
+    a = np.asarray(a).astype(np.uint64)
+    return ((a[0] << np.uint64(32)) | a[1]).view(np.int64)
+
+
+def wide_fused_rows(fm, planes_eff: int) -> np.ndarray:
+    """Wide fused rows, uint32 [n_blocks, 2*sigma + planes*lanes]:
+    checkpoint hi words | lo words | plane lanes."""
+    sigma = fm.symbol_count
+    n_blocks = fm.rank_checkpoints.shape[0]
+    out = np.empty((n_blocks, 2 * sigma + planes_eff * fm.block.num_lanes), np.uint32)
+    ck = np.asarray(fm.rank_checkpoints, dtype=np.uint64)
+    out[:, :sigma] = (ck >> np.uint64(32)).astype(np.uint32)
+    out[:, sigma:2 * sigma] = (ck & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    out[:, 2 * sigma:] = np.ascontiguousarray(fm.lanes[:, :planes_eff, :]).reshape(n_blocks, -1)
+    return out
+
+
+class _PhaseClock:
+    """Seconds per upload phase, device work synchronised at each phase end."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.phases: dict = {}
+        self.t = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.phases[label] = now - self.t
+        self.t = now
 
 
 @dataclasses.dataclass
@@ -78,6 +136,9 @@ class DeviceFmIndex:
     pair_c2: torch.Tensor | None
     pair_fix: torch.Tensor | None
     meta: IndexMeta
+    # wide stream engine only: global counts at segment starts, int64
+    # [n_segs, sigma] (ops/stream_join.derive_stream_table_wide)
+    seg_base: torch.Tensor | None = None
     # seconds per upload phase (device work synchronised at each phase end)
     upload_phases: dict = dataclasses.field(default_factory=dict)
 
@@ -113,14 +174,16 @@ class DeviceFmIndex:
         and derives the checkpoints on the device (``"auto"``: on CUDA).
         ``stream_derive=False`` derives the stream table on the host.
         ``derived_cache_dir`` caches the host-assembled fused table.
-        ``stream_tile`` is the reference's TPU tile width; the port's tables
-        are untiled, so it is accepted and unused.
+        ``pair_gather`` lets the gather engine consume two symbols per row
+        gather from the pair table.  ``stream_tile`` is the reference's TPU
+        tile width; the port's tables are untiled, so it is accepted and
+        unused.  Texts of 2^32 bp and more, or ``force_wide``, upload the
+        wide engine (:meth:`_from_host_wide`).
         """
-        if force_wide or fm.text_len >= 2**32:
-            return cls._from_host_wide(fm)
-        if pair_gather:
-            raise NotImplementedError("pair_gather tables are not ported yet")
         device = torch.device(device) if device is not None else torch.get_default_device()
+        if force_wide or fm.text_len >= 2**32:
+            return cls._from_host_wide(fm, device, stream,
+                                       dense_host_entries if dense_lut_entries else 0)
         kind = fm.block
 
         sa_device_fill = isinstance(sa_full, str) and sa_full == "device"
@@ -186,18 +249,14 @@ class DeviceFmIndex:
                 fm.lanes[:, :planes_eff, :]).reshape(n_blocks, -1)
             return fused
 
-        if isinstance(fm.encoder, EncodingTable):
-            enc_table = fm.encoder.table.astype(np.int64)
-        else:
-            enc_table = np.arange(256, dtype=np.int64)
+        enc_table = _enc_table(fm)
 
         dk = dense_ops.auto_dense_k(sigma, fm.kmer_size, dense_lut_entries or 0,
                                     text_len=fm.text_len)
         dk_host = min(dk, max(dense_ops.auto_dense_k(
             sigma, fm.kmer_size, dense_host_entries, text_len=fm.text_len),
             fm.kmer_size + 1)) if dk else 0
-        phases = {}
-        t0 = time.perf_counter()
+        phase = _PhaseClock(device)
         d_lo = d_hi = None
         if dk:
             if dense_lut_cache is not None:
@@ -214,7 +273,7 @@ class DeviceFmIndex:
                 if dense_lut_cache is not None:
                     np.savez(dense_lut_cache, dk=dk_host, lo=d_lo, hi=d_hi,
                              digest=content_digest)
-        phases["dense_host"] = time.perf_counter() - t0
+        phase("dense_host")
 
         use_stream_engine = stream and sigma in kernels.JOIN_SIGMAS
         use_pair = pair and use_stream_engine and sigma * sigma in kernels.JOIN_SIGMAS
@@ -225,17 +284,9 @@ class DeviceFmIndex:
             num_lanes=kind.num_lanes, dense_k=dk,
             stream_rows=n_rows if use_stream_engine else 0,
             pair_rows=n_rows if use_pair else 0,
+            pair_gather=bool(pair_gather and use_pair),
             has_sa_full=(sa_full is not None) or sa_device_fill)
 
-        def _phase(label):
-            nonlocal t_last
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            now = time.perf_counter()
-            phases[label] = now - t_last
-            t_last = now
-
-        t_last = time.perf_counter()
         if ckpt_derive == "auto":
             ckpt_derive = device.type == "cuda"
         if ckpt_derive:
@@ -259,7 +310,7 @@ class DeviceFmIndex:
             sa_dev = _i32(sa_full, device)
         else:
             sa_dev = _i32(fm.suffix_array, device)
-        _phase("put")
+        phase("put")
 
         stream_dev = None
         if use_stream_engine:
@@ -268,7 +319,7 @@ class DeviceFmIndex:
             else:
                 stream_dev = stream_join.derive_stream_table(
                     meta, _i32(_build_fused(), "cpu"), fm.text_len).to(device)
-        _phase("stream")
+        phase("stream")
 
         pair_tbl = pair_c2 = pair_fix = None
         if use_pair:
@@ -276,7 +327,7 @@ class DeviceFmIndex:
 
             pair_tbl, pair_c2, pair_fix = build_pair_table_device(
                 meta, fused_dev, count_dev, sentinel, fm.text_len)
-        _phase("pair")
+        phase("pair")
 
         # the SA fill runs before the dense extension: its output plus its
         # sort transients are the upload's peak device memory
@@ -287,22 +338,65 @@ class DeviceFmIndex:
                 meta, fused_dev, count_dev, sentinel, sa_up, fm.text_len,
                 fm.sampling_ratio * ratio, stream_tbl=stream_dev)
             sa_up = None
-        _phase("sa_fill")
+        phase("sa_fill")
 
         if dk and dk > dk_host:
             dlo_dev, dhi_dev = dense_ops.extend_dense_lut_device(
                 meta, fused_dev, np.asarray(fm.count_array, dtype=np.int64),
                 sentinel, dlo_dev, dhi_dev, dk - dk_host)
-        _phase("dense_device")
+        phase("dense_device")
         return cls(fused=fused_dev, kmer_tbl=kmer_dev, dense_lo=dlo_dev,
                    dense_hi=dhi_dev, count_arr=count_dev, sa=sa_dev,
                    sentinel=sentinel, enc_table=enc_dev, stream_tbl=stream_dev,
                    pair_tbl=pair_tbl, pair_c2=pair_c2, pair_fix=pair_fix,
-                   meta=meta, upload_phases=phases)
+                   meta=meta, upload_phases=phase.phases)
 
     @classmethod
-    def _from_host_wide(cls, fm) -> "DeviceFmIndex":
-        raise NotImplementedError("u64-position texts: later PR")
+    def _from_host_wide(cls, fm, device: torch.device, stream: bool,
+                        dense_host_entries: int) -> "DeviceFmIndex":
+        """Upload a u64-position index: the wide engine (``ops/wide.py``).
+
+        As in the JAX upload: dense seeds built on the host only (up to
+        ``dense_host_entries``; no device extension), no pair table and no
+        full SA, so locate always walks.  The stream engine needs sigma in
+        ``kernels.JOIN_SIGMAS``.  Positions are int64 here, so the JAX
+        envelope (``validate_wide``: uint32 block and SA folds, ratio <=
+        2^15) bounds nothing; the segment-local stream checkpoints fit 32
+        bits by construction (``SEG_BLOCKS``).
+        """
+        kind = fm.block
+        sigma = fm.symbol_count
+        planes_eff = min(kind.num_planes, max(1, (sigma - 1).bit_length()))
+        phase = _PhaseClock(device)
+        dk = dense_ops.auto_dense_k(sigma, fm.kmer_size, dense_host_entries or 0,
+                                    text_len=fm.text_len)
+        d_lo, d_hi = dense_ops.dense_lut(fm, dk, wide=True) if dk else (None, None)
+        phase("dense_host")
+        use_stream_engine = stream and sigma in kernels.JOIN_SIGMAS
+        meta = IndexMeta(
+            sigma=sigma, kmer_size=fm.kmer_size, sampling_ratio=fm.sampling_ratio,
+            block_len=kind.block_len, num_planes=planes_eff, num_lanes=kind.num_lanes,
+            dense_k=dk,
+            stream_rows=stream_join.stream_rows(fm.text_len) if use_stream_engine else 0,
+            wide_pos=True)
+        fused_dev = _i32(wide_fused_rows(fm, planes_eff), device)
+        sa_dev = _i64(fm.suffix_array, device)
+        count_dev = _i64(fm.count_array, device)
+        kmer_dev = _i64(fm.kmer_count_table, device)
+        enc_dev = _i64(_enc_table(fm), device)
+        dlo_dev = _i64(d_lo, device) if dk else None
+        dhi_dev = _i64(d_hi, device) if dk else None
+        phase("put")
+        stream_dev = seg_base = None
+        if use_stream_engine:
+            stream_dev, seg_base = stream_join.derive_stream_table_wide(
+                meta, fused_dev, fm.text_len)
+        phase("stream")
+        return cls(fused=fused_dev, kmer_tbl=kmer_dev, dense_lo=dlo_dev,
+                   dense_hi=dhi_dev, count_arr=count_dev, sa=sa_dev,
+                   sentinel=int(fm.sentinel_index), enc_table=enc_dev,
+                   stream_tbl=stream_dev, pair_tbl=None, pair_c2=None, pair_fix=None,
+                   meta=meta, seg_base=seg_base, upload_phases=phase.phases)
 
     @classmethod
     def from_reference(cls, arrays: dict, meta, device=None) -> "DeviceFmIndex":
@@ -310,40 +404,60 @@ class DeviceFmIndex:
         ``arrays`` holds ``np.asarray`` of every field of a JAX
         ``DeviceFmIndex``, ``meta`` is its ``IndexMeta``.  Tables are copied
         (stream and pair tables through the layout adapter); ``pair_c2`` and
-        ``pair_fix`` are copied as they are."""
-        if meta.wide_pos:
-            return cls._from_host_wide(None)
+        ``pair_fix`` are copied as they are, ``pair_gtbl`` is not needed (the
+        port's pair gather ranks from ``pair_tbl``).  Wide state
+        (``meta.wide_pos``): ``fused`` is copied, the (hi, lo) lanes of
+        ``sa``, ``kmer_tbl``, ``count_arr``, the dense tables, ``sentinel``
+        and ``seg_base`` become int64 values, and the pair placeholders are
+        ignored."""
         device = torch.device(device) if device is not None else torch.get_default_device()
         sigma = meta.sigma
-        text_len = int(arrays["count_arr"][sigma])
+        wide = meta.wide_pos
+        vals = _lanes64 if wide else np.asarray
+        text_len = int(vals(arrays["count_arr"])[sigma])
         n_rows = stream_join.stream_rows(text_len)
 
         def table(name, s):
             rows = stream_join.stream_table_from_reference(arrays[name], s, meta.stream_tile)
             return torch.tensor(rows[:n_rows], device=device)
 
+        def dense(name):
+            if not meta.dense_k:
+                return None
+            return _i64(vals(arrays[name]), device) if wide else _i32(arrays[name], device)
+
         stream = bool(meta.stream_rows) and sigma in kernels.JOIN_SIGMAS
-        pair = bool(meta.pair_rows) and stream and sigma * sigma in kernels.JOIN_SIGMAS
+        pair = (not wide and bool(meta.pair_rows) and stream
+                and sigma * sigma in kernels.JOIN_SIGMAS)
         port_meta = IndexMeta(
             sigma=sigma, kmer_size=meta.kmer_size, sampling_ratio=meta.sampling_ratio,
             block_len=meta.block_len, num_planes=meta.num_planes,
             num_lanes=meta.num_lanes, dense_k=meta.dense_k,
             stream_rows=n_rows if stream else 0, pair_rows=n_rows if pair else 0,
+            pair_gather=bool(meta.pair_gather and pair), wide_pos=wide,
             has_sa_full=meta.has_sa_full)
+        stream_tbl = seg_base = None
+        if stream and wide:
+            rows, base = stream_join.stream_table_wide_from_reference(
+                arrays["stream_tbl"], arrays["seg_base"], sigma, meta.stream_tile, text_len)
+            stream_tbl = torch.tensor(rows, device=device)
+            seg_base = torch.tensor(base, device=device)
+        elif stream:
+            stream_tbl = table("stream_tbl", sigma)
         return cls(
             fused=_i32(arrays["fused"], device),
-            kmer_tbl=_i64(arrays["kmer_tbl"], device),
-            dense_lo=_i32(arrays["dense_lo"], device) if meta.dense_k else None,
-            dense_hi=_i32(arrays["dense_hi"], device) if meta.dense_k else None,
-            count_arr=_i64(arrays["count_arr"], device),
-            sa=_i32(arrays["sa"], device),
-            sentinel=int(arrays["sentinel"]),
+            kmer_tbl=_i64(vals(arrays["kmer_tbl"]), device),
+            dense_lo=dense("dense_lo"),
+            dense_hi=dense("dense_hi"),
+            count_arr=_i64(vals(arrays["count_arr"]), device),
+            sa=_i64(vals(arrays["sa"]), device) if wide else _i32(arrays["sa"], device),
+            sentinel=int(vals(arrays["sentinel"]).reshape(-1)[0]),
             enc_table=_i64(arrays["enc_table"], device),
-            stream_tbl=table("stream_tbl", sigma) if stream else None,
+            stream_tbl=stream_tbl,
             pair_tbl=table("pair_tbl", sigma * sigma) if pair else None,
             pair_c2=_i64(arrays["pair_c2"], device) if pair else None,
             pair_fix=_i64(arrays["pair_fix"], device) if pair else None,
-            meta=port_meta)
+            meta=port_meta, seg_base=seg_base)
 
     # ------------------------------------------------------------------
     # Crossovers measured for the JAX package on a TPU v5e (gather vs
@@ -355,6 +469,9 @@ class DeviceFmIndex:
     def _stream(self, B: int, use_stream: bool | None) -> bool:
         if self.meta.stream_rows == 0:
             return False
+        if self.meta.wide_pos:
+            # wide batches take the stream engine unless asked not to
+            return use_stream is not False
         if B >= self.STREAM_MAX_BATCH:
             if use_stream is None or use_stream:
                 warnings.warn(
@@ -369,60 +486,87 @@ class DeviceFmIndex:
     def engine_for(self, B: int, use_stream: bool | None = None,
                    use_pair: bool = True) -> str:
         """The engine a batch of ``B`` lanes is served by: ``'gather'`` |
-        ``'stream'`` | ``'pair-stream'``."""
+        ``'stream'`` | ``'pair-stream'``, or ``'wide-stream'`` |
+        ``'wide-gather'`` for a wide index."""
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             stream = self._stream(B, use_stream)
+        if self.meta.wide_pos:
+            return "wide-stream" if stream else "wide-gather"
         if not stream:
             return "gather"
         return "pair-stream" if (use_pair and self.meta.pair_rows) else "stream"
 
     def _ranges(self, patterns, lens, use_stream, use_pair):
+        """(lo, hi, stream): the ranges and whether the stream engine
+        served them."""
         patterns, lens, steps, (all_dense, fixed_len) = _as_batch(
             self.meta, patterns, lens, self.device)
         sym = search_ops.encode_patterns(self.enc_table, patterns)
-        return search_ops.pos_ranges(
-            self, sym, lens, steps, use_stream=self._stream(patterns.shape[0], use_stream),
-            use_pair=use_pair, all_dense=all_dense, fixed_len=fixed_len)
+        stream = self._stream(patterns.shape[0], use_stream)
+        if self.meta.wide_pos:
+            lo, hi = wide_ops.pos_ranges_wide(self, sym, lens, steps, use_stream=stream,
+                                              all_dense=all_dense, fixed_len=fixed_len)
+        else:
+            lo, hi = search_ops.pos_ranges(
+                self, sym, lens, steps, use_stream=stream, use_pair=use_pair,
+                all_dense=all_dense, fixed_len=fixed_len)
+        return lo, hi, stream
 
     def count(self, patterns, lens=None, use_stream: bool | None = None,
               use_pair: bool = True) -> torch.Tensor:
         """counts int64 [B] for a [B, Lmax] uint8 batch (raw bytes for
-        EncodingTable indexes, symbol indices for PassThrough).
-        ``use_pair=False`` forces the single-symbol engines."""
-        lo, hi = self._ranges(patterns, lens, use_stream, use_pair)
+        EncodingTable indexes, symbol indices for PassThrough); wide indexes
+        too.  ``use_pair=False`` forces the single-symbol engines."""
+        lo, hi, _ = self._ranges(patterns, lens, use_stream, use_pair)
         return hi - lo
 
     def pos_ranges(self, patterns, lens=None, use_stream: bool | None = None):
-        """(lo, hi) int64 [B]."""
-        return self._ranges(patterns, lens, use_stream, True)
+        """(lo, hi) int64 [B], wide indexes too."""
+        return self._ranges(patterns, lens, use_stream, True)[:2]
 
     def locate(self, patterns, lens=None, capacity: int | None = None,
                use_stream: bool | None = None, use_pair: bool = True):
         """(locations int64 [capacity], pattern_ids int64, valid bool,
-        dropped int64 [1]).  Slot ``p < B`` is pattern p's first occurrence,
-        slots ``B..`` the overflow (``ops.locate.expand_ranges``).  With
-        ``capacity=None`` it is sized from the counts; callers passing a
-        capacity must check ``dropped == 0``."""
+        dropped int64 [1]); wide indexes too.  Slot ``p < B`` is pattern p's
+        first occurrence, slots ``B..`` the overflow
+        (``ops.locate.expand_ranges``).  With ``capacity=None`` it is sized
+        from the counts; callers passing a capacity must check ``dropped ==
+        0``."""
         locs, pids, valid, _, dropped = self.locate_with_counts(
             patterns, lens, capacity, use_stream, use_pair)
         return locs, pids, valid, dropped
 
     def locate_with_counts(self, patterns, lens=None, capacity: int | None = None,
                            use_stream: bool | None = None, use_pair: bool = True):
-        """(locs, pids, valid, counts, dropped); no host sync when
-        ``capacity`` is given."""
-        lo, hi = self._ranges(patterns, lens, use_stream, use_pair)
+        """(locs, pids, valid, counts, dropped), all int64 / bool tensors;
+        no host sync when ``capacity`` is given (a walk still syncs once per
+        step)."""
+        lo, hi, stream = self._ranges(patterns, lens, use_stream, use_pair)
         if capacity is None:
             capacity = locate_ops.expand_capacity((hi - lo).cpu().numpy())
-        locs, pids, valid, dropped = self.resolve_rows(lo, hi, capacity)
+        locs, pids, valid, dropped = self.resolve_rows(lo, hi, capacity, stream)
         return locs, pids, valid, hi - lo, dropped
 
-    def resolve_rows(self, lo, hi, capacity: int):
+    def resolve_rows(self, lo, hi, capacity: int, use_stream: bool = False):
         """Expand [lo, hi) ranges and resolve rows to locations: (locs,
-        pids, valid, dropped)."""
+        pids, valid, dropped).  ``use_stream`` lets the LF walk decode
+        through the join kernel."""
+        stream = use_stream and self.stream_tbl is not None
+        if self.meta.wide_pos:
+            return wide_ops.locate_rows_wide(
+                self.meta, self.fused, self.count_arr, self.sa, self.sentinel, lo, hi,
+                capacity, self.stream_tbl, self.seg_base, stream)
         return locate_ops.locate_rows(self.meta, self.fused, self.count_arr,
-                                      self.sa, self.sentinel, lo, hi, capacity)
+                                      self.sa, self.sentinel, lo, hi, capacity,
+                                      self.stream_tbl, stream)
+
+
+def _enc_table(fm) -> np.ndarray:
+    """256-entry byte -> symbol table (the identity for PassThrough)."""
+    if isinstance(fm.encoder, EncodingTable):
+        return fm.encoder.table.astype(np.int64)
+    return np.arange(256, dtype=np.int64)
 
 
 def to_device_torch(fm, device, **kwargs) -> DeviceFmIndex:

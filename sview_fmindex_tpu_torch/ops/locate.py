@@ -7,7 +7,8 @@ FIRST occurrence row of pattern p (valid iff count >= 1), slots
 ``B..capacity`` the overflow (2nd+ occurrences), placed by a searchsorted
 over the overflow prefix sums.  Phase 3 resolves every row to a text
 location: one gather when the full (r=1) SA is resident, else the LF walk
-with the sentinel-row short-circuit (``locate/mod.rs:21-35``).  Output order
+with the sentinel-row short-circuit (``locate/mod.rs:21-35``), decoding by
+fused-row gathers or through the join kernel's decode mode.  Output order
 is unspecified; consumers key on ``pat_ids``/``valid``.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import stream_join as sj
 from .rank import pre_rank_and_symidx, u32
 
 _SAT_CAP = 0x7FFFFFFF
@@ -74,10 +76,12 @@ def expand_ranges(lo: torch.Tensor, hi: torch.Tensor, capacity: int):
     return rows, pids, valid, dropped
 
 
-def walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid):
-    """Resolve BWT rows to text locations by LF-walking (gather decode) until
-    the row is a multiple of the sampling ratio.  Returns int64 [capacity]."""
-    r = meta.sampling_ratio
+def lf_walk(r: int, count_arr, sa, rows, valid, decode):
+    """Resolve BWT rows to text locations by LF-walking until the row is a
+    multiple of the sampling ratio ``r`` (``locate/mod.rs:21-35``), with the
+    sentinel-row short-circuit.  ``decode(pos)`` returns (rank, symidx,
+    is_sentinel) at every position (the narrow or wide decode, gather or
+    sort-join).  Returns int64 [capacity]."""
     pos = rows
     offset = torch.zeros_like(rows)
     loc = torch.zeros_like(rows)
@@ -86,8 +90,7 @@ def walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid):
         need = (pos % r != 0) & ~done & valid
         if not bool(need.any()):
             break
-        rank, symidx, is_sent = pre_rank_and_symidx(
-            meta, fused, sentinel, torch.where(need, pos, 0))
+        rank, symidx, is_sent = decode(torch.where(need, pos, 0))
         hit = need & is_sent
         loc = torch.where(hit, offset, loc)
         done = done | hit
@@ -97,7 +100,22 @@ def walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid):
     return torch.where(done, loc, u32(sa[pos // r]) + offset)
 
 
-def locate_rows(meta, fused, count_arr, sa, sentinel, lo, hi, capacity: int):
+def walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid,
+              stream_tbl=None, use_stream: bool = False):
+    """LF walk on a narrow index: each step decodes through the join
+    kernel's decode mode over ``stream_tbl`` (``use_stream``) or by fused-row
+    gathers."""
+    if use_stream:
+        def decode(pos):
+            return sj.pre_rank_and_symidx_sorted(stream_tbl, sentinel, pos, meta.sigma)
+    else:
+        def decode(pos):
+            return pre_rank_and_symidx(meta, fused, sentinel, pos)
+    return lf_walk(meta.sampling_ratio, count_arr, sa, rows, valid, decode)
+
+
+def locate_rows(meta, fused, count_arr, sa, sentinel, lo, hi, capacity: int,
+                stream_tbl=None, use_stream: bool = False):
     """Expand + resolve: (locs int64, pat_ids int64, valid bool, dropped)."""
     rows, pat_ids, valid, dropped = expand_ranges(lo, hi, capacity)
     if meta.has_sa_full:
@@ -105,5 +123,6 @@ def locate_rows(meta, fused, count_arr, sa, sentinel, lo, hi, capacity: int):
         # emit (locate/mod.rs:27-30), so one gather resolves every row
         locs = torch.where(valid, u32(sa[rows]), 0)
     else:
-        locs = walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid)
+        locs = walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid,
+                         stream_tbl, use_stream)
     return locs, pat_ids, valid, dropped

@@ -25,7 +25,13 @@ M32 = 0xFFFFFFFF
 
 
 def u32(words: torch.Tensor) -> torch.Tensor:
-    """32-bit words (int32 bit patterns) -> int64 values in [0, 2^32)."""
+    """32-bit words (int32 bit patterns) -> int64 values in [0, 2^32).
+
+    int64 tensors already hold values (the wide engine's SA, dense and
+    checkpoint tables, ``ops/wide.py``) and are returned as they are, so
+    the table's dtype decides whether a mask applies."""
+    if words.dtype == torch.int64:
+        return words
     return words.long() & M32
 
 
@@ -105,7 +111,8 @@ def derive_fused_device(meta, planes: torch.Tensor, text_len: int) -> torch.Tens
 
 def rank_from_rows(meta, rows: torch.Tensor, rem: torch.Tensor,
                    symidx: torch.Tensor) -> torch.Tensor:
-    """Rank math given gathered fused rows (int32 [..., W])."""
+    """Rank math given gathered fused rows (int32 [..., W] words, or int64
+    values)."""
     rows = u32(rows)
     ckpt = rows.gather(-1, symidx[..., None])[..., 0]
     combined = _combine_planes(_plane_lanes(meta, rows), symidx)
@@ -134,7 +141,8 @@ def pre_rank_and_symidx(meta, fused: torch.Tensor, sentinel, pos: torch.Tensor):
 
 
 def pre_rank_and_symidx_from_rows(meta, rows: torch.Tensor, rem: torch.Tensor):
-    """Decode + rank math given gathered fused rows (int32 [..., W])."""
+    """Decode + rank math given gathered fused rows (int32 [..., W] words,
+    or int64 values)."""
     rows = u32(rows)
     planes = _plane_lanes(meta, rows)
     lane = (rem >> 5)[..., None, None].expand(*rem.shape, meta.num_planes, 1)

@@ -11,8 +11,12 @@ engines rank the range ends:
 - pair stream: sort-join passes over the sigma^2 pair table
   (``build/pair_table.py``), two pattern symbols per pass.  Uniform-length
   batches stay in sorted order across passes (``_ranges_chain``).
+- pair gather (``meta.pair_gather``): two pattern symbols per row gather
+  from the same pair table.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -100,6 +104,27 @@ def max_steps_needed(meta, lens, Lmax: int) -> int:
     return min(int(per.max()), max(Lmax - meta.kmer_size, 0))
 
 
+def sym_back(sym: torch.Tensor, lens: torch.Tensor, seed_len: torch.Tensor, back):
+    """Symbol ``back`` steps from the seed (back=0 is the first LF symbol);
+    ``back`` is an int or a per-lane tensor.  The clamp keeps finished
+    lanes in range."""
+    j = (lens - seed_len - 1 - back).clamp(0, sym.shape[-1] - 1)
+    return sym.gather(1, j[:, None])[:, 0]
+
+
+def lf_step(pre_tbl: torch.Tensor, rank, s: torch.Tensor, lo: torch.Tensor,
+            hi: torch.Tensor, active: torch.Tensor):
+    """One LF step with code ``s`` of every active lane's [lo, hi):
+    ``pre_tbl[s] + rank(ends, codes)`` over the 2B range ends.  Inactive
+    lanes rank position 0 (a hot row) instead of a random one."""
+    B = lo.shape[0]
+    ends_q = torch.where(active, torch.stack([lo, hi]), 0).reshape(2 * B)
+    ranks = rank(ends_q, torch.cat([s, s]))
+    pre = pre_tbl[s]
+    return (torch.where(active, pre + ranks[:B], lo),
+            torch.where(active, pre + ranks[B:], hi))
+
+
 def pos_ranges(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int,
                use_stream: bool = False, use_pair: bool = True,
                all_dense: bool = False, fixed_len: int | None = None):
@@ -109,7 +134,8 @@ def pos_ranges(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int,
     ``steps`` must be >= every lane's rem_steps (see max_steps_needed).
     ``use_stream`` ranks through sort-join passes instead of row gathers;
     with the pair table resident (``meta.pair_rows``) and ``use_pair``,
-    each pass consumes two pattern symbols.
+    each pass consumes two pattern symbols.  ``meta.pair_gather`` lets the
+    gather engine consume two symbols per row gather from the same table.
     """
     meta = dev.meta
     sentinel = dev.sentinel
@@ -118,61 +144,80 @@ def pos_ranges(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int,
         all_dense=all_dense, fixed_len=fixed_len)
     if steps == 0:
         return lo, hi
-    B = lo.shape[0]
-    Lmax = sym.shape[-1]
+    sigma = meta.sigma
 
     def sym_at(back):
-        """Symbol ``back`` steps from the seed (back=0 is the first LF
-        symbol); ``back`` is an int or a per-lane tensor.  The clamp keeps
-        finished lanes in range."""
-        j = (lens - seed_len - 1 - back).clamp(0, Lmax - 1)
-        return sym.gather(1, j[:, None])[:, 0]
+        return sym_back(sym, lens, seed_len, back)
 
-    def single_body(t, lo, hi, mask=None):
-        active = (t < rem_steps) & (lo < hi)
-        if mask is not None:
-            active = active & mask
-        s = sym_at(t)
-        # inactive lanes rank position 0 (a hot row) instead of a random one
-        ends_q = torch.where(active, torch.stack([lo, hi]), 0).reshape(2 * B)
-        if use_stream:
-            ranks = sj.rank_next_sorted(dev.stream_tbl, sentinel, ends_q,
-                                        torch.cat([s, s]), meta.sigma)
-        else:
-            ranks = rank_next(meta, dev.fused, sentinel, ends_q, torch.cat([s, s]))
-        pre = dev.count_arr[s]
-        return (torch.where(active, pre + ranks[:B], lo),
-                torch.where(active, pre + ranks[B:], hi))
+    if use_stream:
+        def rank1(pos, s):
+            return sj.rank_next_sorted(dev.stream_tbl, sentinel, pos, s, sigma)
+    else:
+        def rank1(pos, s):
+            return rank_next(meta, dev.fused, sentinel, pos, s)
 
     use_pair_stream = use_stream and use_pair and meta.pair_rows > 0 and steps >= 2
+    use_pair_gather = not use_stream and use_pair and meta.pair_gather and steps >= 2
     if use_pair_stream and fixed_len is not None and (all_dense or not meta.dense_k):
         # uniform length and seed: every lane takes exactly ``steps`` steps
         return _ranges_chain(dev, lo, hi, sym, fixed_len, steps)
 
-    if not use_pair_stream:
+    if not (use_pair_stream or use_pair_gather):
         for t in range(steps):
-            lo, hi = single_body(t, lo, hi)
+            lo, hi = lf_step(dev.count_arr, rank1, sym_at(t), lo, hi,
+                             (t < rem_steps) & (lo < hi))
         return lo, hi
 
-    sigma = meta.sigma
+    sigma2 = sigma * sigma
+    if use_pair_stream:
+        def rank2(pos, c):
+            return sj.rank_next_sorted(dev.pair_tbl, sentinel, pos, c, sigma2)
+    else:
+        # the row-major pair table is also a gather table: blocks of 128
+        # positions, 4 lanes per plane, sigma^2 codes
+        meta2 = dataclasses.replace(meta, sigma=sigma2, block_len=sj.SBL,
+                                    num_planes=sj._planes_for(sigma2), num_lanes=sj.LANES)
+
+        def rank2(pos, c):
+            return rank_next(meta2, dev.pair_tbl, sentinel, pos, c)
     j_star, c_star = dev.pair_fix[0], dev.pair_fix[1]
-    for t in range(steps // 2):
-        # a lane takes a pair step while >= 2 of its LF steps remain
-        active = (2 * t + 1 < rem_steps) & (lo < hi)
-        code = sym_at(2 * t) * sigma + sym_at(2 * t + 1)
-        ends_q = torch.where(active, torch.stack([lo, hi]), 0).reshape(2 * B)
-        c2 = torch.cat([code, code])
-        ranks = sj.rank_next_sorted(dev.pair_tbl, sentinel, ends_q, c2, sigma * sigma)
+
+    def pair_rank(pos, c):
         # one table entry's LF target is the sentinel row; its code is a
         # stand-in and must not be counted (build/pair_table.py)
-        pq = ends_q + (ends_q < sentinel).long()
-        ranks = ranks - ((c2 == c_star) & (pq > j_star)).long()
-        pre = dev.pair_c2[code]
-        lo = torch.where(active, pre + ranks[:B], lo)
-        hi = torch.where(active, pre + ranks[B:], hi)
+        pq = pos + (pos < sentinel).long()
+        return rank2(pos, c) - ((c == c_star) & (pq > j_star)).long()
+
+    for t in range(steps // 2):
+        # a lane takes a pair step while >= 2 of its LF steps remain
+        code = sym_at(2 * t) * sigma + sym_at(2 * t + 1)
+        lo, hi = lf_step(dev.pair_c2, pair_rank, code, lo, hi,
+                         (2 * t + 1 < rem_steps) & (lo < hi))
     # lanes with an odd number of LF steps have exactly one left, at their
     # final (leftmost) symbol
-    return single_body(rem_steps - 1, lo, hi, mask=rem_steps % 2 == 1)
+    return lf_step(dev.count_arr, rank1, sym_at(rem_steps - 1), lo, hi,
+                   (rem_steps % 2 == 1) & (lo < hi))
+
+
+def sorted_pass(pos: torch.Tensor, lane: torch.Tensor, codes: torch.Tensor,
+                table: torch.Tensor, sigma: int, sentinel,
+                seg_base: torch.Tensor | None = None):
+    """One pass of a sorted chain: sort the 2B positions by their
+    sentinel-shifted key, carry each lane's original index through the
+    permutation, and rank each lane's code (``codes[lane % B]``) in one join.
+    Returns (key, lane, code, rank) in sorted order."""
+    key, perm = torch.sort(pos + (pos < sentinel).long())
+    lane = lane[perm]
+    c = codes[lane % codes.shape[0]]
+    ranks, _ = sj.join(table, key, c, sigma, False, seg_base)
+    return key, lane, c, ranks
+
+
+def unsort(pos: torch.Tensor, lane: torch.Tensor, B: int):
+    """A sorted chain's final positions back to lane order: (lo, hi)."""
+    out = torch.empty_like(pos)
+    out[lane] = pos
+    return out[:B], out[B:]
 
 
 def _ranges_chain(dev, lo, hi, sym, fixed_len: int, steps: int):
@@ -196,27 +241,17 @@ def _ranges_chain(dev, lo, hi, sym, fixed_len: int, steps: int):
     sigma = meta.sigma
     seed = meta.dense_k if meta.dense_k else meta.kmer_size
     j0 = fixed_len - seed - 1
-    codes = [sym[:, j0 - 2 * t] * sigma + sym[:, j0 - 2 * t - 1]
-             for t in range(steps // 2)]
     j_star, c_star = dev.pair_fix[0], dev.pair_fix[1]
 
     pos = torch.cat([lo, hi])
     lane = torch.arange(2 * B, device=pos.device)
-    for code in codes:
-        key, perm = torch.sort(pos + (pos < sentinel).long())
-        lane = lane[perm]
-        c = code[lane % B]
-        ranks, _ = sj.join(dev.pair_tbl, key, c, sigma * sigma, False)
-        corr = ((c == c_star) & (key > j_star)).long()
-        pos = dev.pair_c2[c] + ranks - corr
+    for t in range(steps // 2):
+        code = sym[:, j0 - 2 * t] * sigma + sym[:, j0 - 2 * t - 1]
+        key, lane, c, ranks = sorted_pass(pos, lane, code, dev.pair_tbl,
+                                          sigma * sigma, sentinel)
+        pos = dev.pair_c2[c] + ranks - ((c == c_star) & (key > j_star)).long()
     if steps % 2:
-        s = sym[:, j0 - (steps - 1)]
-        key, perm = torch.sort(pos + (pos < sentinel).long())
-        lane = lane[perm]
-        c = s[lane % B]
-        ranks, _ = sj.join(dev.stream_tbl, key, c, sigma, False)
+        _, lane, c, ranks = sorted_pass(pos, lane, sym[:, j0 - (steps - 1)],
+                                        dev.stream_tbl, sigma, sentinel)
         pos = dev.count_arr[c] + ranks
-    out = torch.empty_like(pos)
-    out[lane] = pos
-    return out[:B], out[B:]
-
+    return unsort(pos, lane, B)

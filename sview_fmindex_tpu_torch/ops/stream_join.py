@@ -15,9 +15,16 @@ That is 12 words (48 B) per block at sigma=4 and 32 words (128 B) at the
 pair table's sigma^2=16.  The JAX package's transposed, tiled TPU layout
 converts with :func:`stream_table_from_reference`.
 
+Wide (u64-position) tables keep the same rows with SEGMENT-LOCAL
+checkpoints: each counts from the first block of its segment of
+``SEG_BLOCKS`` blocks (2^31 positions, so it fits 32 bits), and ``seg_base``
+int64 ``[n_segs, sigma]`` holds the global count at each segment start
+(:func:`derive_stream_table_wide`).
+
 :func:`join` is the kernel's entry point: on CUDA tensors it launches the
 hand-written kernel (``csrc/join.cu``), on CPU tensors it runs
-:func:`join_plain`, the plain-torch version of the same function.
+:func:`join_plain`, the plain-torch version of the same function.  Given a
+``seg_base`` it runs the segmented modes, which return global ranks.
 """
 from __future__ import annotations
 
@@ -32,9 +39,13 @@ from .rank import _combine_planes, _lane_masks, popcount32, u32
 SBL = 128
 SBL_SHIFT = 7
 LANES = SBL // 32  # u32 lanes per plane per block
+# wide-table segment: 2^24 stream blocks = 2^31 positions, so a local
+# checkpoint fits 32 bits.  A power of two, read at call time.
+SEG_BLOCKS = 1 << 24
 
-# kernel launches per mode ("rank", "decode"); counted only where the CUDA
-# kernel is launched, so a run can show its main path went through it
+# kernel launches per mode ("rank", "decode", "rank_seg", "decode_seg");
+# counted only where the CUDA kernel is launched, so a run can show its main
+# path went through it
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -52,6 +63,24 @@ def stream_rows(text_len: int) -> int:
     return text_len // SBL + 1
 
 
+def _regroup(meta, fused: torch.Tensor, text_len: int, ckpt_words: int):
+    """Per stream block: the leading ``ckpt_words`` words of its first fused
+    block, and its plane lanes (int32 [n_blocks, P*4]) taken from the
+    ``128 // BL`` fused blocks it covers."""
+    g = SBL // meta.block_len  # fused blocks per stream block
+    P = _planes_for(meta.sigma)
+    fl = meta.num_lanes
+    n_s = stream_rows(text_len)
+    need = n_s * g
+    f = fused
+    if f.shape[0] < need:
+        f = torch.cat([f, f.new_zeros(need - f.shape[0], f.shape[1])])
+    f = f[:need].reshape(n_s, g, f.shape[1])
+    planes = (f[:, :, ckpt_words:ckpt_words + P * fl].reshape(n_s, g, P, fl)
+              .permute(0, 2, 1, 3).reshape(n_s, P * LANES))
+    return f[:, 0, :ckpt_words], planes
+
+
 def derive_stream_table(meta, fused: torch.Tensor, text_len: int) -> torch.Tensor:
     """Stream table (int32 [n_blocks, RW]) from the fused gather table.
 
@@ -61,19 +90,26 @@ def derive_stream_table(meta, fused: torch.Tensor, text_len: int) -> torch.Tenso
     ``128 // BL`` fused blocks it covers.  Stream planes are the low
     ``_planes_for(sigma)`` fused planes.
     """
+    ckpt, planes = _regroup(meta, fused, text_len, meta.sigma)
+    return torch.cat([ckpt, planes], dim=1).contiguous()
+
+
+def derive_stream_table_wide(meta, fused: torch.Tensor, text_len: int):
+    """Segment-local stream table (int32 [n_blocks, RW]) and ``seg_base``
+    (int64 [n_segs, sigma]) from the wide fused table (int32 [n_fused,
+    2*sigma + planes*lanes]: checkpoint hi words, lo words, plane lanes).
+
+    ``seg_base[s]`` is the global checkpoint of block ``s * SEG_BLOCKS``; a
+    row's checkpoint word is its global checkpoint minus its segment's base,
+    a count over fewer than 2^31 positions.
+    """
     sigma = meta.sigma
-    g = SBL // meta.block_len  # fused blocks per stream block
-    P = _planes_for(sigma)
-    fl = meta.num_lanes
-    n_s = stream_rows(text_len)
-    need = n_s * g
-    f = fused
-    if f.shape[0] < need:
-        f = torch.cat([f, f.new_zeros(need - f.shape[0], f.shape[1])])
-    f = f[:need].reshape(n_s, g, f.shape[1])
-    planes = (f[:, :, sigma:sigma + P * fl].reshape(n_s, g, P, fl)
-              .permute(0, 2, 1, 3).reshape(n_s, P * LANES))
-    return torch.cat([f[:, 0, :sigma], planes], dim=1).contiguous()
+    ck, planes = _regroup(meta, fused, text_len, 2 * sigma)
+    glob = (u32(ck[:, :sigma]) << 32) | u32(ck[:, sigma:])
+    seg = torch.arange(glob.shape[0], device=glob.device) >> _seg_shift()
+    seg_base = glob[::SEG_BLOCKS].contiguous()
+    local = (glob - seg_base[seg]).to(torch.int32)
+    return torch.cat([local, planes], dim=1).contiguous(), seg_base
 
 
 def stream_table_from_reference(tbl_np: np.ndarray, sigma: int, T: int) -> np.ndarray:
@@ -92,12 +128,29 @@ def stream_table_from_reference(tbl_np: np.ndarray, sigma: int, T: int) -> np.nd
     return np.ascontiguousarray(rows.reshape(-1, rw_ref)[:, :rw]).view(np.int32)
 
 
+def stream_table_wide_from_reference(tbl_np: np.ndarray, seg_base_np: np.ndarray,
+                                     sigma: int, T: int, text_len: int):
+    """The JAX package's wide stream table and its uint32 ``[2, n_segs *
+    sigma]`` (hi, lo) segment bases -> this port's rows (int32 [n_blocks,
+    RW]) and ``seg_base`` (int64 [n_segs, sigma]).  Both packages cut
+    segments at 2^24 blocks, so the local checkpoints carry over."""
+    n_rows = stream_rows(text_len)
+    lanes = np.asarray(seg_base_np).astype(np.uint64)
+    base = ((lanes[0] << np.uint64(32)) | lanes[1]).view(np.int64).reshape(-1, sigma)
+    return (stream_table_from_reference(tbl_np, sigma, T)[:n_rows],
+            base[:-(-n_rows // SEG_BLOCKS)])
+
+
 # ---------------------------------------------------------------------------
 # the join kernel and its plain version
 # ---------------------------------------------------------------------------
 
+def _seg_shift() -> int:
+    return SEG_BLOCKS.bit_length() - 1
+
+
 def join(table: torch.Tensor, key: torch.Tensor, payload: torch.Tensor | None,
-         sigma: int, decode: bool):
+         sigma: int, decode: bool, seg_base: torch.Tensor | None = None):
     """Rank (and in decode mode the symbol) at every key.
 
     ``key``: int64 [N] sentinel-shifted positions, sorted by the caller so
@@ -107,16 +160,22 @@ def join(table: torch.Tensor, key: torch.Tensor, payload: torch.Tensor | None,
     int64 [N] or None): ``rank = ckpt[key>>7][sym] + popcount of sym's
     positions in the block before key & 127``; in decode mode sym is the
     block symbol at key.  Keys outside the table give rank 0 and sym 0.
+
+    ``seg_base`` (int64 [n_segs, sigma], the bases of a segment-local
+    table) selects the segmented modes: the rank becomes global by adding
+    ``seg_base[(key >> 7) >> log2(SEG_BLOCKS), sym]``.
     """
     if key.is_cuda:
-        return _join_cuda(table, key, payload, sigma, decode)
-    return join_plain(table, key, payload, sigma, decode)
+        return _join_cuda(table, key, payload, sigma, decode, seg_base, _seg_shift())
+    return join_plain(table, key, payload, sigma, decode, seg_base, _seg_shift())
 
 
 def join_plain(table: torch.Tensor, key: torch.Tensor,
-               payload: torch.Tensor | None, sigma: int, decode: bool):
+               payload: torch.Tensor | None, sigma: int, decode: bool,
+               seg_base: torch.Tensor | None = None, seg_shift: int | None = None):
     """Plain-torch version of the join kernel (row gather + SWAR
-    popcount): the CPU path and the kernel's reference."""
+    popcount): the CPU path and the kernel's reference.  ``seg_shift``
+    (segmented modes) defaults to log2(SEG_BLOCKS)."""
     P = _planes_for(sigma)
     blk = key >> SBL_SHIFT
     ok = (key >= 0) & (blk < table.shape[0])
@@ -129,14 +188,20 @@ def join_plain(table: torch.Tensor, key: torch.Tensor,
         sym = (bits << torch.arange(P, device=key.device)).sum(1)
     else:
         sym = payload & 63
-    ckpt = rows.gather(1, sym.clamp(max=sigma - 1)[:, None])[:, 0]
-    ckpt = torch.where(sym < sigma, ckpt, 0)
+    in_sigma = sym < sigma
+    sym_c = sym.clamp(max=sigma - 1)
+    ckpt = torch.where(in_sigma, rows.gather(1, sym_c[:, None])[:, 0], 0)
     cnt = popcount32(_combine_planes(planes, sym) & _lane_masks(LANES, rem)).sum(1)
-    rank = torch.where(ok, ckpt + cnt, 0)
+    rank = ckpt + cnt
+    if seg_base is not None:
+        shift = _seg_shift() if seg_shift is None else seg_shift
+        base = seg_base.reshape(-1)[torch.where(ok, (blk >> shift) * sigma + sym_c, 0)]
+        rank = rank + torch.where(in_sigma, base, 0)
+    rank = torch.where(ok, rank, 0)
     return rank, (torch.where(ok, sym, 0) if decode else None)
 
 
-def _join_cuda(table, key, payload, sigma, decode):
+def _join_cuda(table, key, payload, sigma, decode, seg_base, seg_shift):
     from .. import kernels
 
     if sigma not in kernels.JOIN_SIGMAS:
@@ -155,6 +220,15 @@ def _join_cuda(table, key, payload, sigma, decode):
                        or payload.shape != key.shape or payload.device != dev
                        or not payload.is_contiguous()):
         raise ValueError("rank mode needs a contiguous int64 payload shaped like key")
+    if seg_base is not None:
+        # every row's segment must have a base: the kernel reads it unchecked
+        n_segs = -(-table.shape[0] // (1 << seg_shift))
+        if (seg_base.dtype != torch.int64 or seg_base.device != dev
+                or not seg_base.is_contiguous() or seg_base.dim() != 2
+                or seg_base.shape[1] != sigma or seg_base.shape[0] < n_segs):
+            raise ValueError(
+                f"seg_base must be a contiguous int64 [>= {n_segs}, {sigma}] tensor on "
+                f"{dev}, got {seg_base.dtype} {list(seg_base.shape)} on {seg_base.device}")
     n = key.shape[0]
     rank = torch.empty(n, dtype=torch.int64, device=dev)
     sym = torch.empty(n, dtype=torch.int64, device=dev) if decode else None
@@ -165,11 +239,14 @@ def _join_cuda(table, key, payload, sigma, decode):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sview_join(
             sigma, int(decode), table.data_ptr(), table.shape[0], key.data_ptr(),
-            None if decode else payload.data_ptr(), rank.data_ptr(),
-            None if sym is None else sym.data_ptr(), n, ctypes.c_void_p(stream))
+            None if decode else payload.data_ptr(),
+            None if seg_base is None else seg_base.data_ptr(), seg_shift,
+            rank.data_ptr(), None if sym is None else sym.data_ptr(), n,
+            ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"join kernel launch failed: {kernels.cuda_error(err)}")
-    LAUNCHES["decode" if decode else "rank"] += 1
+    mode = "decode" if decode else "rank"
+    LAUNCHES[mode if seg_base is None else f"{mode}_seg"] += 1
     return rank, sym
 
 
@@ -178,18 +255,19 @@ def _join_cuda(table, key, payload, sigma, decode):
 # ---------------------------------------------------------------------------
 
 def rank_next_sorted(table: torch.Tensor, sentinel, pos: torch.Tensor,
-                     sym: torch.Tensor, sigma: int) -> torch.Tensor:
+                     sym: torch.Tensor, sigma: int,
+                     seg_base: torch.Tensor | None = None) -> torch.Tensor:
     """Batched ``get_next_rank`` via sort-join.  pos, sym int64 [N]
     (sym < 64).  Equal to ``ops.rank.rank_next``."""
     key, perm = torch.sort(pos + (pos < sentinel).long())
-    ranks, _ = join(table, key, sym[perm].contiguous(), sigma, False)
+    ranks, _ = join(table, key, sym[perm].contiguous(), sigma, False, seg_base)
     out = torch.empty_like(ranks)
     out[perm] = ranks
     return out
 
 
 def pre_rank_and_symidx_sorted(table: torch.Tensor, sentinel, pos: torch.Tensor,
-                               sigma: int):
+                               sigma: int, seg_base: torch.Tensor | None = None):
     """Batched ``get_pre_rank_and_symidx`` via sort-join.
 
     Returns (rank int64, symidx int64, is_sentinel bool); rank/symidx are
@@ -197,9 +275,24 @@ def pre_rank_and_symidx_sorted(table: torch.Tensor, sentinel, pos: torch.Tensor,
     """
     is_sentinel = pos == sentinel - 1
     key, perm = torch.sort(pos + (pos < sentinel).long())
-    ranks, syms = join(table, key, None, sigma, True)
+    ranks, syms = join(table, key, None, sigma, True, seg_base)
     rank = torch.empty_like(ranks)
     sym = torch.empty_like(syms)
     rank[perm] = ranks
     sym[perm] = syms
     return rank, sym, is_sentinel
+
+
+def rank_next_sorted_wide(table: torch.Tensor, seg_base: torch.Tensor, sentinel,
+                          pos: torch.Tensor, sym: torch.Tensor, sigma: int) -> torch.Tensor:
+    """``get_next_rank`` over a segment-local wide table: the sort-join in
+    the segmented rank mode, global int64 ranks.  Equal to
+    ``ops.wide.rank_next_wide``."""
+    return rank_next_sorted(table, sentinel, pos, sym, sigma, seg_base)
+
+
+def pre_rank_and_symidx_sorted_wide(table: torch.Tensor, seg_base: torch.Tensor,
+                                    sentinel, pos: torch.Tensor, sigma: int):
+    """``get_pre_rank_and_symidx`` over a segment-local wide table (the
+    segmented decode mode).  Equal to ``ops.wide.pre_rank_and_symidx_wide``."""
+    return pre_rank_and_symidx_sorted(table, sentinel, pos, sigma, seg_base)

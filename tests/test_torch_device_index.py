@@ -5,8 +5,10 @@ go through the port, the JAX ``DeviceFmIndex`` and the host oracle
 (``FmIndex.count``/``locate``): uniform lengths with dense seeds and even
 and odd step counts (the sorted pair chain with and without its sigma=4
 pass), mixed lengths (the pair loop), patterns shorter than k, wildcard
-bytes, both engines, and state carried over from the JAX index.  Counts and
-located positions must be exactly equal.
+bytes, both engines, and state carried over from the JAX index.  Without a
+full SA the LF walk decodes through the join (stream) or by gathers; with
+``pair_gather`` the gather engine ranks two symbols per row of the pair
+table.  Counts and located positions must be exactly equal.
 """
 import dataclasses
 import os
@@ -21,8 +23,11 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import sview_fmindex_tpu as fmx  # noqa: E402
+from sview_fmindex_tpu.models.device_index import DeviceFmIndex as JaxDeviceFmIndex  # noqa: E402
 from sview_fmindex_tpu.utils.patterns import pack_patterns  # noqa: E402
 from sview_fmindex_tpu_torch import DeviceFmIndex, to_device_torch  # noqa: E402
+from sview_fmindex_tpu_torch.ops import search as tsearch  # noqa: E402
+from sview_fmindex_tpu_torch.ops import stream_join as tsj  # noqa: E402
 
 N = 4201  # sigma**7 <= 4*N, so dense_k reaches 7
 DENSE = dict(dense_lut_entries=4 ** 7, dense_host_entries=4 ** 5)  # dk 7: 5 host + 2 device
@@ -140,18 +145,99 @@ def test_upload_options(index, tmp_path):
     bare = to_device_torch(fm, "cpu", dense_lut_entries=0, stream=False)
     assert bare.meta.stream_rows == bare.meta.pair_rows == 0
     assert bare.engine_for(1 << 20, use_stream=True) == "gather"
-    with pytest.raises(NotImplementedError, match="u64"):
-        to_device_torch(fm, "cpu", force_wide=True)
-    with pytest.raises(NotImplementedError):
-        to_device_torch(fm, "cpu", pair_gather=True)
     with pytest.warns(RuntimeWarning, match="budget"):
         assert not tdev._stream(tdev.STREAM_MAX_BATCH, True)
+
+
+def _spy(monkeypatch, module, name, record):
+    """Wrap ``module.name`` so each call appends ``record(*args)``."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        seen.append(record(*args))
+        return fn(*args, **kwargs)
+
+    seen = []
+    monkeypatch.setattr(module, name, wrapper)
+    return seen
+
+
+def test_stream_decode_walk(index, monkeypatch):
+    """No full SA: the walk decodes through the join's decode mode
+    (``use_stream``) or by fused-row gathers; both equal the JAX stream walk
+    (interpret mode), each other and the oracle."""
+    t, fm = index["text"], index["fm"]
+    walk = to_device_torch(fm, "cpu", **DENSE)
+    jwalk = fm.to_device(stream_tile=256, **DENSE)
+    assert not walk.meta.has_sa_full and not jwalk.meta.has_sa_full
+    decodes = _spy(monkeypatch, tsj, "join_plain", lambda *a: a[4])
+    for plen, ref in ((11, True), (5, False)):  # dense seed + pair chain; blob seed
+        pats, batch, lens = _batch(t, np.random.default_rng(plen), [plen] * 150)
+        out = {}
+        for use_stream in (True, False):
+            decodes.clear()
+            out[use_stream] = walk.locate_with_counts(batch, lens, use_stream=use_stream)
+            assert (True in decodes) == use_stream
+            _assert_same(fm, walk, jwalk, pats, batch, lens, use_stream)
+        for a, b in zip(out[True], out[False]):
+            assert torch.equal(a, b)
+        if ref:
+            locs, pids, valid, _, _ = out[True]
+            jl, jp, jv, jd = (np.asarray(a) for a in jwalk.locate(
+                batch, lens, capacity=locs.shape[0], use_stream=True))
+            assert int(jd[0]) == 0
+            np.testing.assert_array_equal(valid.numpy(), jv)
+            np.testing.assert_array_equal(locs.numpy()[jv], jl[jv].astype(np.int64))
+            np.testing.assert_array_equal(pids.numpy()[jv], jp[jv].astype(np.int64))
+
+
+def test_pair_gather(monkeypatch):
+    """``pair_gather=True`` in ``tests/test_pair_table.py``'s configuration
+    (1200 bp, no dense seeds, 10-bp patterns) and with mixed lengths (odd
+    leftover steps): the gather engine ranks two symbols per row of the
+    row-major pair table, and answers as the JAX pair-gather engine, the
+    single-symbol engine and the oracle do; so does state carried over from
+    the JAX index."""
+    rng = np.random.default_rng(5)
+    n = 1200
+    text = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n))
+    enc = fmx.EncodingTable.from_symbols([b"A", b"C", b"G", b"T"])
+    b = fmx.FmIndexBuilder(
+        n, 4, enc, position="u32", block=fmx.BLOCK3_U64,
+        suffix_array_config=fmx.SuffixArrayConfig.compressed(2),
+        lookup_table_config=fmx.LookupTableConfig.kmer_size(3), sa_backend="numpy")
+    fm = fmx.FmIndex.load(np.frombuffer(b.build(text), np.uint8), position="u32",
+                          block=fmx.BLOCK3_U64, encoder_kind="table")
+    jdev = JaxDeviceFmIndex.from_host(fm, pair_gather=True, dense_lut_entries=0)
+    tdev = to_device_torch(fm, "cpu", pair_gather=True, dense_lut_entries=0)
+    assert tdev.meta.pair_gather and jdev.meta.pair_gather
+    arrays = {f.name: np.asarray(getattr(jdev, f.name))
+              for f in dataclasses.fields(jdev) if f.name != "meta"}
+    rdev = DeviceFmIndex.from_reference(arrays, jdev.meta, device="cpu")
+    assert rdev.meta == tdev.meta
+    starts = rng.integers(0, n - 10, size=32)
+    uniform = [text[s:s + 10] for s in starts]
+    mixed = [text[s:s + m] for s, m in zip(starts, rng.integers(1, 11, size=32))]
+    pair_ranks = _spy(monkeypatch, tsearch, "rank_next", lambda meta, *a: meta.sigma)
+    for pats in (uniform, mixed):
+        batch, lens = pack_patterns(pats)
+        pair_ranks.clear()
+        c1 = tdev.count(batch, lens, use_stream=False, use_pair=False)
+        assert 16 not in pair_ranks
+        for dev in (tdev, rdev):
+            pair_ranks.clear()
+            c0 = dev.count(batch, lens, use_stream=False)
+            assert 16 in pair_ranks
+            assert torch.equal(c0, c1)
+            np.testing.assert_array_equal(
+                c0.numpy(), np.asarray(jdev.count(batch, lens, use_stream=False)))
+            _assert_same(fm, dev, jdev, pats, batch, lens, use_stream=False)
 
 
 def test_port_imports_no_jax():
     code = ("import sys, sview_fmindex_tpu_torch, sview_fmindex_tpu_torch.kernels, "
             "sview_fmindex_tpu_torch.build.sa_fill, sview_fmindex_tpu_torch.build.pair_table, "
-            "sview_fmindex_tpu_torch.bench.timing; "
+            "sview_fmindex_tpu_torch.ops.wide, sview_fmindex_tpu_torch.bench.timing; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {**os.environ, "PYTHONPATH": root}

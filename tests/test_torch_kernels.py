@@ -2,7 +2,7 @@
 
 On the CPU, ``join_plain`` is held against a scalar Python statement of the
 kernel's contract on random table words (every bit pattern, payloads up to
-63, keys past the table).  On a card (``@pytest.mark.cuda``; skipped
+63, keys past the table), in the plain and the segmented modes.  On a card (``@pytest.mark.cuda``; skipped
 without one) the CUDA kernel must equal ``join_plain`` exactly, and the
 whole slice on CUDA must equal the CPU run.  This file imports no JAX, so on
 a machine without it the card tests run with
@@ -18,7 +18,7 @@ import sview_fmindex_tpu_torch as ft  # noqa: E402
 from sview_fmindex_tpu_torch.ops import stream_join as sj  # noqa: E402
 
 
-def _scalar_join(tbl, key, payload, sigma, decode):
+def _scalar_join(tbl, key, payload, sigma, decode, seg_base=None, seg_shift=0):
     """The kernel's contract, one query at a time in Python integers."""
     P = sj._planes_for(sigma)
     blk = key >> 7
@@ -39,25 +39,38 @@ def _scalar_join(tbl, key, payload, sigma, decode):
             comb &= wq if (sym >> q) & 1 else ~wq & 0xFFFFFFFF
         take = min(max(rem - 32 * lane, 0), 32)
         cnt += bin(comb & ((0xFFFFFFFF << (32 - take)) & 0xFFFFFFFF if take else 0)).count("1")
-    return (w[sym] if sym < sigma else 0) + cnt, sym
+    base = int(seg_base[blk >> seg_shift, sym]) if seg_base is not None and sym < sigma else 0
+    return (w[sym] if sym < sigma else 0) + cnt + base, sym
 
 
-def _random_case(sigma, n_rows, n_keys, seed):
+def _random_case(sigma, n_rows, n_keys, seed, seg_shift=None):
+    """Random table words, sorted keys (some past the table), payloads up
+    to 63; with ``seg_shift`` also random segment bases up to 2^35."""
     rng = np.random.default_rng(seed)
     tbl = rng.integers(-2**31, 2**31, size=(n_rows, sj._rw(sigma))).astype(np.int32)
     key = np.sort(rng.integers(0, n_rows * 128 + 200, size=n_keys))
     payload = rng.integers(0, 64, size=n_keys)
-    return tbl, key, payload
+    seg_base = None
+    if seg_shift is not None:
+        seg_base = rng.integers(0, 2**35, size=(-(-n_rows >> seg_shift), sigma))
+    return tbl, key, payload, seg_base
 
 
-@pytest.mark.parametrize("sigma,decode", [(4, False), (4, True), (16, False), (16, True)])
-def test_join_plain_matches_scalar_contract(sigma, decode):
-    tbl, key, payload = _random_case(sigma, 40, 1500, sigma + decode)
+MODES = [(4, False), (4, True), (16, False), (16, True)]
+
+
+@pytest.mark.parametrize("segmented", [False, True], ids=["plain", "seg"])
+@pytest.mark.parametrize("sigma,decode", MODES)
+def test_join_plain_matches_scalar_contract(sigma, decode, segmented):
+    shift = 3 if segmented else None  # 8-row segments: 5 of them
+    tbl, key, payload, seg_base = _random_case(sigma, 40, 1500, sigma + decode, shift)
     rank, sym = sj.join_plain(torch.from_numpy(tbl), torch.from_numpy(key),
-                              None if decode else torch.from_numpy(payload), sigma, decode)
+                              None if decode else torch.from_numpy(payload), sigma, decode,
+                              None if seg_base is None else torch.from_numpy(seg_base), shift)
     assert (sym is None) == (not decode)
     for i in range(key.shape[0]):
-        want_rank, want_sym = _scalar_join(tbl, int(key[i]), int(payload[i]), sigma, decode)
+        want_rank, want_sym = _scalar_join(tbl, int(key[i]), int(payload[i]), sigma, decode,
+                                           seg_base, shift or 0)
         assert int(rank[i]) == want_rank, i
         if decode:
             assert int(sym[i]) == want_sym, i
@@ -71,21 +84,30 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sigma,decode", [(4, False), (4, True), (16, False), (16, True)])
-def test_cuda_kernel_matches_plain(cuda, sigma, decode):
-    tbl, key, payload = _random_case(sigma, 50_000, 1 << 20, 10 + sigma + decode)
+@pytest.mark.parametrize("segmented", [False, True], ids=["plain", "seg"])
+@pytest.mark.parametrize("sigma,decode", MODES)
+def test_cuda_kernel_matches_plain(cuda, sigma, decode, segmented, monkeypatch):
+    if segmented:
+        monkeypatch.setattr(sj, "SEG_BLOCKS", 1 << 12)  # 13 segments of 4096 rows
+    shift = sj._seg_shift() if segmented else None
+    tbl, key, payload, seg_base = _random_case(sigma, 50_000, 1 << 20, 10 + sigma + decode,
+                                               shift)
     tbl, key = torch.from_numpy(tbl).to(cuda), torch.from_numpy(key).to(cuda)
     payload = None if decode else torch.from_numpy(payload).to(cuda)
-    mode = "decode" if decode else "rank"
+    seg_base = None if seg_base is None else torch.from_numpy(seg_base).to(cuda)
+    mode = ("decode" if decode else "rank") + ("_seg" if segmented else "")
     before = sj.LAUNCHES[mode]
-    rank, sym = sj.join(tbl, key, payload, sigma, decode)
-    rank_p, sym_p = sj.join_plain(tbl, key, payload, sigma, decode)
+    rank, sym = sj.join(tbl, key, payload, sigma, decode, seg_base)
+    rank_p, sym_p = sj.join_plain(tbl, key, payload, sigma, decode, seg_base, shift)
     torch.cuda.synchronize()
     assert sj.LAUNCHES[mode] == before + 1
     assert torch.equal(rank, rank_p)
     assert (sym is None and sym_p is None) or torch.equal(sym, sym_p)
-    with pytest.raises(ValueError):
-        sj.join(tbl.to(torch.int64), key, payload, sigma, decode)  # wrong dtype: no launch
+    with pytest.raises(ValueError):  # wrong dtypes: no launch
+        sj.join(tbl.to(torch.int64), key, payload, sigma, decode, seg_base)
+    if segmented:
+        with pytest.raises(ValueError):
+            sj.join(tbl, key, payload, sigma, decode, seg_base[:1])  # too few segments
     assert sj.LAUNCHES[mode] == before + 1
 
 
@@ -118,3 +140,39 @@ def test_slice_on_cuda_matches_cpu(cuda):
             for g, w in zip(got, want):
                 assert torch.equal(g.cpu(), w)
     assert sj.LAUNCHES["rank"] > 0
+
+
+@pytest.mark.cuda
+def test_wide_slice_on_cuda_matches_cpu(cuda):
+    """The wide engine on the card (segmented modes, 64-block segments so
+    the 30 kbp text spans several) against the same upload on the CPU."""
+    rng = np.random.default_rng(8)
+    n = 30_011
+    text = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n))
+    enc = ft.EncodingTable.from_symbols([b"A", b"C", b"G", b"T"])
+    b = ft.FmIndexBuilder(n, 4, enc, position="u64", block=ft.BLOCK3_U64,
+                          suffix_array_config=ft.SuffixArrayConfig.compressed(3),
+                          lookup_table_config=ft.LookupTableConfig.kmer_size(3),
+                          sa_backend="numpy")
+    fm = ft.FmIndex.load(np.frombuffer(b.build(text), np.uint8), position="u64",
+                         block=ft.BLOCK3_U64)
+    old = sj.SEG_BLOCKS
+    sj.SEG_BLOCKS = 64
+    try:
+        cpu_dev = ft.to_device_torch(fm, "cpu", force_wide=True)
+        gpu_dev = ft.to_device_torch(fm, cuda, force_wide=True)
+        for name in ("fused", "stream_tbl", "seg_base", "sa", "dense_lo", "dense_hi"):
+            assert torch.equal(getattr(gpu_dev, name).cpu(), getattr(cpu_dev, name)), name
+        sj.LAUNCHES.clear()
+        for plen in (15, 9):
+            starts = rng.integers(0, n - plen, size=3000)
+            batch = np.frombuffer(text, np.uint8)[starts[:, None] + np.arange(plen)]
+            for use_stream in (True, False):
+                got = gpu_dev.locate_with_counts(batch, use_stream=use_stream)
+                want = cpu_dev.locate_with_counts(batch, use_stream=use_stream)
+                for g, w in zip(got, want):
+                    assert torch.equal(g.cpu(), w)
+        assert sj.LAUNCHES["rank_seg"] > 0 and sj.LAUNCHES["decode_seg"] > 0
+        assert sj.LAUNCHES["rank"] == sj.LAUNCHES["decode"] == 0
+    finally:
+        sj.SEG_BLOCKS = old

@@ -5,7 +5,11 @@ after the layout adapter, and the join (its plain version on the CPU; the
 CUDA kernel is held against it in ``test_torch_kernels.py``) must equal
 JAX's ``rank_next_sorted`` /
 ``pre_rank_and_symidx_sorted`` (Pallas in interpret mode) at sigma=4 and on
-the sigma^2=16 pair table, duplicate keys included.  Exact equality.
+the sigma^2=16 pair table, duplicate keys included.  For wide (u64-position)
+indexes the segment-local table and its bases must equal JAX's
+``derive_stream_table_wide`` after the adapter, and the segmented join must
+equal JAX's ``rank_next_sorted_wide`` / ``pre_rank_and_symidx_sorted_wide``
+(the blkkey kernel; its (hi, lo) lanes combined).  Exact equality.
 """
 import dataclasses
 
@@ -18,22 +22,24 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 import sview_fmindex_tpu as fmx  # noqa: E402
+from sview_fmindex_tpu.models.device_index import DeviceFmIndex as JaxDeviceFmIndex  # noqa: E402
 from sview_fmindex_tpu.ops import stream_join as jsj  # noqa: E402
+from sview_fmindex_tpu.ops import wide as jwide  # noqa: E402
 from sview_fmindex_tpu_torch import to_device_torch  # noqa: E402
 from sview_fmindex_tpu_torch.ops import stream_join as tsj  # noqa: E402
 
 T = 256  # reference stream tile: several tiles at these text sizes
 
 
-def _fm(n, block, seed):
+def _fm(n, block, seed, position="u32"):
     rng = np.random.default_rng(seed)
     text = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n))
     enc = fmx.EncodingTable.from_symbols([b"A", b"C", b"G", b"T"])
     b = fmx.FmIndexBuilder(
-        n, 4, enc, position="u32", block=block,
+        n, 4, enc, position=position, block=block,
         suffix_array_config=fmx.SuffixArrayConfig.compressed(2),
         lookup_table_config=fmx.LookupTableConfig.kmer_size(3), sa_backend="numpy")
-    return fmx.FmIndex.load(np.frombuffer(b.build(text), np.uint8), position="u32",
+    return fmx.FmIndex.load(np.frombuffer(b.build(text), np.uint8), position=position,
                             block=block), rng
 
 
@@ -123,3 +129,62 @@ def test_join_on_cpu_is_the_plain_version_and_order_free(indexes):
     r2, _ = tsj.join(tdev.stream_tbl, key[perm], pay[perm], 4, False)
     assert torch.equal(r2, r[perm])
     assert not tsj.LAUNCHES  # no kernel launches on the CPU
+
+
+@pytest.mark.parametrize("block,n", [
+    (fmx.BLOCK3_U64, 3001),    # BL=64
+    (fmx.BLOCK2_U32, 777),     # BL=32: 4 fused blocks per stream block
+    (fmx.BLOCK3_U128, 4096),   # BL=128: n a multiple of the block
+])
+def test_derived_wide_stream_table_matches_adapted_reference(block, n):
+    fm, _ = _fm(n, block, n, position="u64")
+    jdev = JaxDeviceFmIndex.from_host(fm, force_wide=True, dense_lut_entries=0)
+    tdev = to_device_torch(fm, "cpu", force_wide=True, dense_lut_entries=0)
+    rows, base = tsj.stream_table_wide_from_reference(
+        np.asarray(jdev.stream_tbl), np.asarray(jdev.seg_base), 4, jdev.meta.stream_tile, n)
+    assert tdev.stream_tbl.shape == (tsj.stream_rows(n), tsj._rw(4))
+    assert tdev.seg_base.shape == (1, 4) and tdev.seg_base.dtype == torch.int64
+    np.testing.assert_array_equal(tdev.stream_tbl.numpy(), rows)
+    np.testing.assert_array_equal(tdev.seg_base.numpy(), base)
+    # one segment: its local checkpoints are the narrow table's global ones
+    narrow = to_device_torch(fm, "cpu", dense_lut_entries=0, pair=False)
+    assert torch.equal(tdev.stream_tbl, narrow.stream_tbl)
+
+
+@pytest.fixture(scope="module")
+def wide_indexes():
+    fm, _ = _fm(3001, fmx.BLOCK3_U64, 23, position="u64")
+    jdev = JaxDeviceFmIndex.from_host(fm, force_wide=True, dense_lut_entries=0)
+    tdev = to_device_torch(fm, "cpu", force_wide=True, dense_lut_entries=0)
+    return fm, jdev, tdev
+
+
+def _lanes(pos):
+    return (jnp.asarray((pos >> 32).astype(np.uint32)),
+            jnp.asarray((pos & 0xFFFFFFFF).astype(np.uint32)))
+
+
+@pytest.mark.parametrize("decode", [False, True], ids=["rank_seg", "decode_seg"])
+def test_segmented_join_matches_reference(wide_indexes, decode):
+    fm, jdev, tdev = wide_indexes
+    rng = np.random.default_rng(31 + decode)
+    pos = _queries(fm, rng)
+    if decode:
+        pos = pos[pos < fm.text_len]
+        rh, rl, w_sym, w_sent = (np.asarray(a) for a in jwide.pre_rank_and_symidx_sorted_wide(
+            jdev.meta, jdev.stream_tbl, jdev.seg_base, jdev.sentinel, *_lanes(pos)))
+        g_rank, g_sym, g_sent = (t.numpy() for t in tsj.pre_rank_and_symidx_sorted_wide(
+            tdev.stream_tbl, tdev.seg_base, tdev.sentinel, torch.from_numpy(pos), 4))
+        np.testing.assert_array_equal(g_sent, w_sent)
+        keep = ~w_sent
+        np.testing.assert_array_equal(g_sym[keep], w_sym[keep].astype(np.int64))
+    else:
+        sym = rng.integers(0, 4, size=pos.shape[0]).astype(np.int64)
+        rh, rl = (np.asarray(a) for a in jwide.rank_next_sorted_wide(
+            jdev.meta, jdev.stream_tbl, jdev.seg_base, jdev.sentinel, *_lanes(pos),
+            jnp.asarray(sym, jnp.int32)))
+        g_rank = tsj.rank_next_sorted_wide(tdev.stream_tbl, tdev.seg_base, tdev.sentinel,
+                                           torch.from_numpy(pos), torch.from_numpy(sym),
+                                           4).numpy()
+        keep = np.ones(pos.shape[0], bool)
+    np.testing.assert_array_equal(g_rank[keep], jwide.combine64(rh, rl)[keep].astype(np.int64))
