@@ -9,7 +9,10 @@ bench), uploaded with ``to_device_torch(fm, "cuda", dense_lut_entries=1<<28,
 dense_host_entries=1<<20, sa_full="device", sa_fill_ratio=4)`` and queried
 with uniform 20-bp batches of 100k and 1M patterns through ``count`` and
 ``locate_with_counts(use_stream=True)``.  Then the same blob through the wide
-(u64-position) engine and through the stream-decode LF walk.
+(u64-position) engine and through the stream-decode LF walk, and two more
+alphabets at the same size through the same entry points: protein (sigma
+20) and DNA with a wildcard (sigma 5, a pair table of 25 codes), whose
+tables go through the join kernel's run-time-sigma instantiations.
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -26,7 +29,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 4. kernel: the join kernel against its plain-torch version on the main
    path's sigma=4 stream table and sigma^2=16 pair table, at 2M sorted keys
    (one B=1M search pass) including the key of the sentinel row and key n;
-   results must be exactly equal.  Prints both times.
+   results must be exactly equal.  Prints both times, and the time of the
+   run-time-sigma kernel on the same two tables (exactly equal too).
 5. wide: the main-path index is freed and the same blob is uploaded as a
    wide index (``force_wide=True``, dense_k 10 from the host, sampled SA),
    then the main path's batches go through the wide stream engine with the
@@ -42,7 +46,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    beyond 2^32), 2M sorted keys including both sides of each segment
    boundary, 2^32 - 1, 2^32, 2^32 + 1, the last key in the table and one
    beyond it; exactly equal.  Prints both times.
-8. opt-in, with ``SMOKE_WIDE_TEXT_SIZE`` (> 2^32, e.g. 4.3e9): a u64 blob
+8. protein (BASELINE config 4, the interop corpus case ``prot_b5u64_k2r2``
+   at full size): ``SMOKE_TEXT_SIZE`` residues uniform over the 20 amino
+   acids (seed 42), u32 positions, Block5<u64>, k=2, r=2, the main path's
+   upload (dense_k 6, full SA filled through the sigma=20 decode mode),
+   mixed 10-30 aa batches of 100k and 1M through the stream engine's
+   per-step path with the main path's checks; the rank and decode modes
+   must have launched at sigma 20.  The join kernel against its plain
+   version on the sigma=20 table (rank, decode).  Then the same blob wide
+   (``force_wide``, dense_k 4) at B=100k: its answers equal the narrow
+   ones, and rank_seg and decode_seg launched at sigma 20 and are held
+   against their plain version on the wide table.
+9. wildcard DNA (the corpus case ``wild_b3u64_k3r2`` at full size): the
+   main path's text with seeded N runs of 100-5000 bp over 1% of it,
+   ``EncodingTable.from_symbols_with_wildcard`` over ACGT (sigma 5),
+   Block3<u64>, k=3, r=2, the main path's upload (dense_k 12, pair table
+   of 25 codes); 20-bp batches of 100k and 1M (4 pair passes) and a 21-bp
+   batch of 100k (plus the odd pass over the sigma=5 table), 1% of each
+   straddling an N run's edge, with the main path's checks; the kernel
+   against its plain version at sigma 5 (rank, decode) and on the pair
+   table (rank); then the same blob wide at B=100k.
+10. opt-in, with ``SMOKE_WIDE_TEXT_SIZE`` (> 2^32, e.g. 4.3e9): a u64 blob
    over that many bp (seed 42, built and cached under ``bench_cache/``) is
    uploaded without ``force_wide`` and put through phase 5's checks with
    half the patterns starting above 2^32; some located positions must be
@@ -77,6 +101,16 @@ SEG_ROWS = (1 << 25) + (1 << 20)  # 3 segments of 2^24 rows; keys reach 2^32 + 2
 DEVICE = "cuda"
 JOIN_SRC = "sview_fmindex_tpu_torch/csrc/join.cu"
 JOIN_TPU = "sview_fmindex_tpu/ops/stream_join.py:297"
+AMINO = b"ARNDCQEGHILKMFPSTWYV"
+PROT_LENS = (10, 30)  # BASELINE config 4: mixed-length 10-30 aa patterns
+WILD_LENS = (20, 21)  # 20 bp: 4 pair passes after dense_k 12; 21 bp: + the odd sigma=5 pass
+WILD_N_SHARE = 0.01  # N runs of 100-5000 bp cover about 1% of the text
+# (blob file prefix, block, k-mer LUT, SA sampling) per alphabet
+ALPHABETS = {
+    "dna": ("index", "BLOCK3_U64", 3, 2),
+    "wild": ("wild", "BLOCK3_U64", 3, 2),  # interop corpus case wild_b3u64_k3r2
+    "prot": ("prot", "BLOCK5_U64", 2, 2),  # prot_b5u64_k2r2, BASELINE config 4
+}
 
 
 def check(cond, msg: str) -> None:
@@ -100,15 +134,39 @@ def device_phase(torch) -> str:
     return smi
 
 
+def ptxas_report(out: str) -> list[str]:
+    """One entry per compiled kernel from ``ptxas -v``: its template
+    arguments, registers and spill bytes."""
+    import re
+
+    report, name, spill = [], "?", ""
+    for ln in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            t = re.search(r"(join_kernel(?:_any)?)ILi(\d+)ELb([01])ELb([01])E", m.group(1))
+            name = (f"{t.group(1)}<{t.group(2)},{'decode' if t.group(3) == '1' else 'rank'}"
+                    f"{',seg' if t.group(4) == '1' else ''}>" if t else m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"spill {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            report.append(f"{name} {m.group(1)} regs {spill}".strip())
+    return report
+
+
 def build_phase() -> None:
     from sview_fmindex_tpu_torch import kernels
 
     t0 = time.perf_counter()
     kernels.join_lib()
-    secs, out = kernels.BUILD_LOG.get("join", (0.0, ""))
-    regs = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
+    if "join" not in kernels.BUILD_LOG:
+        log("[build] join kernel loaded from an earlier build in _build/ (no compiler log)")
+        return
+    secs, out = kernels.BUILD_LOG["join"]
+    report = ptxas_report(out)
     log(f"[build] join kernel ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {secs:.2f} s): {'; '.join(regs)}")
+        f"(nvcc {secs:.2f} s), {len(report)} instantiations: {'; '.join(report)}")
 
 
 def get_text(size: int) -> np.ndarray:
@@ -130,16 +188,57 @@ def get_text(size: int) -> np.ndarray:
     return np.memmap(path, dtype=np.uint8, mode="r")
 
 
-def get_blob(ft, text: np.ndarray, position: str = "u32"):
+def _cached_text(name: str, make) -> np.ndarray:
+    path = os.path.join(CACHE_DIR, name)
+    if not os.path.exists(path):
+        os.makedirs(CACHE_DIR, exist_ok=True)
+        tmp = f"{path}.tmp{os.getpid()}"
+        make().tofile(tmp)
+        os.replace(tmp, path)
+    return np.memmap(path, dtype=np.uint8, mode="r")
+
+
+def get_wild_text(size: int) -> np.ndarray:
+    """The seed-42 ACGT text with seeded runs of N, 100-5000 bp long, over
+    about 1% of it: the gaps of a genome assembly."""
+    def make():
+        text = np.array(get_text(size))
+        rng = np.random.default_rng(SEED + 10)
+        covered = 0
+        while covered < WILD_N_SHARE * size:
+            m = int(rng.integers(100, 5001))
+            a = int(rng.integers(0, size - m))
+            text[a:a + m] = ord("N")
+            covered += m
+        return text
+    return _cached_text(f"text_wild_{size}_{SEED}.bin", make)
+
+
+def get_protein_text(size: int) -> np.ndarray:
+    """``size`` residues uniform over the 20 amino acids, seed 42."""
+    return _cached_text(f"text_prot_{size}_{SEED}.bin", lambda: np.frombuffer(
+        AMINO, np.uint8)[np.random.default_rng(SEED).integers(0, 20, size=size)])
+
+
+def get_blob(ft, text: np.ndarray, position: str = "u32", alphabet: str = "dna"):
+    prefix, block_name, k, r = ALPHABETS[alphabet]
+    block = getattr(ft, block_name)
     size = text.shape[0]
     tag = "" if position == "u32" else f"_{position}"
-    path = os.path.join(CACHE_DIR, f"index_{size}_{SEED}{tag}_b3u64_r2_k3.blob")
+    path = os.path.join(CACHE_DIR, f"{prefix}_{size}_{SEED}{tag}_"
+                        f"{block_name.lower().replace('block', 'b').replace('_', '')}"
+                        f"_r{r}_k{k}.blob")
     if not os.path.exists(path):
-        enc = ft.EncodingTable.from_symbols([b"A", b"C", b"G", b"T"])
+        if alphabet == "prot":
+            enc = ft.EncodingTable.from_symbols([bytes([c]) for c in AMINO])
+        elif alphabet == "wild":  # N and every other byte: a fifth symbol
+            enc = ft.EncodingTable.from_symbols_with_wildcard([b"A", b"C", b"G", b"T"])
+        else:
+            enc = ft.EncodingTable.from_symbols([b"A", b"C", b"G", b"T"])
         builder = ft.FmIndexBuilder(
-            size, enc.symbol_count(), enc, position=position, block=ft.BLOCK3_U64,
-            suffix_array_config=ft.SuffixArrayConfig.compressed(2),
-            lookup_table_config=ft.LookupTableConfig.kmer_size(3),
+            size, enc.symbol_count(), enc, position=position, block=block,
+            suffix_array_config=ft.SuffixArrayConfig.compressed(r),
+            lookup_table_config=ft.LookupTableConfig.kmer_size(k),
             sa_backend="native")
         # the host build peaks near 19 bytes per bp (int64 SA and its
         # shifted copy; two int64 text copies in the k-mer pass)
@@ -157,7 +256,7 @@ def get_blob(ft, text: np.ndarray, position: str = "u32"):
         log(f"[blob] built the {position} blob over {size} bp in "
             f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(path) / 2**20:.0f} MiB)")
     mm = np.memmap(path, dtype=np.uint8, mode="r")
-    return ft.FmIndex.load(mm, position=position, block=ft.BLOCK3_U64, encoder_kind="table")
+    return ft.FmIndex.load(mm, position=position, block=block, encoder_kind="table")
 
 
 def measure(fn, B: int, reps: int, windows: int = 5):
@@ -176,8 +275,11 @@ def location_sets(locs, pids, valid, n: int) -> np.ndarray:
     return torch.sort(pids[valid] * (n + 1) + locs[valid])[0].cpu().numpy()
 
 
-def check_batch(torch, fm, dev, text, pats_np, patterns, counts, out) -> None:
+def check_batch(torch, fm, dev, text, pats_np, lens, patterns, counts, out) -> None:
+    """Every check of one batch; ``lens`` int [B] (or None: all of
+    ``pats_np``'s width)."""
     locs, pids, valid, counts2, dropped = out
+    plen = np.full(pats_np.shape[0], pats_np.shape[1]) if lens is None else lens
     B = counts.shape[0]
     check(int(dropped[0]) == 0, "capacity overflow dropped hits")
     check(torch.equal(counts, counts2), "locate_with_counts counts != count")
@@ -186,12 +288,12 @@ def check_batch(torch, fm, dev, text, pats_np, patterns, counts, out) -> None:
     locs_np, pids_np, valid_np = (t.cpu().numpy() for t in (locs, pids, valid))
     for i in np.nonzero(valid_np)[0][:N_RECHECK]:
         loc, p = int(locs_np[i]), int(pids_np[i])
-        check(bytes(text[loc:loc + PATTERN_LEN]) == bytes(pats_np[p]),
+        check(bytes(text[loc:loc + plen[p]]) == bytes(pats_np[p, :plen[p]]),
               f"location {loc} does not hold pattern {p}")
     # parity gate: the gather engine must agree exactly
-    c_g = dev.count(patterns, use_stream=False, use_pair=False)
+    c_g = dev.count(patterns, lens, use_stream=False, use_pair=False)
     check(torch.equal(c_g, counts), "count parity (stream vs gather)")
-    lg, pg, vg, _ = dev.locate(patterns, capacity=locs.shape[0], use_stream=False,
+    lg, pg, vg, _ = dev.locate(patterns, lens, capacity=locs.shape[0], use_stream=False,
                                use_pair=False)
     check(torch.equal(vg, valid) and torch.equal(lg[vg], locs[valid])
           and torch.equal(pg[vg], pids[valid]), "locate parity (stream vs gather)")
@@ -202,7 +304,7 @@ def check_batch(torch, fm, dev, text, pats_np, patterns, counts, out) -> None:
         if p < N_ORACLE:
             by_pid.setdefault(int(p), []).append(int(loc))
     for i in range(min(N_ORACLE, B)):
-        pat = bytes(pats_np[i])
+        pat = bytes(pats_np[i, :plen[i]])
         check(int(counts_np[i]) == fm.count(pat), f"count of pattern {i} vs host")
         check(sorted(by_pid.get(i, [])) == sorted(fm.locate(pat)),
               f"locations of pattern {i} vs host")
@@ -224,28 +326,32 @@ def upload(torch, ft, fm, tag: str, **kwargs):
     return dev
 
 
-def run_batch(torch, fm, dev, text, tag: str, pats_np, engine: str):
+def run_batch(torch, fm, dev, text, tag: str, pats_np, engine: str, lens=None):
     """One batch through count + locate_with_counts(use_stream=True): every
-    check, then queries/s.  Returns (counts, location sets, the locate
-    output, seconds after start when the first call had answered)."""
+    check, then queries/s.  ``lens``: per-pattern lengths (None: uniform).
+    Returns (counts, location sets, the locate output, seconds after start
+    when the first call had answered)."""
     from sview_fmindex_tpu_torch.ops.locate import expand_capacity
 
     B = pats_np.shape[0]
     patterns = torch.from_numpy(pats_np).to(DEVICE)
     check(dev.engine_for(B, use_stream=True) == engine, f"engine is not {engine}")
     t0 = time.perf_counter()
-    counts = dev.count(patterns, use_stream=True)
+    counts = dev.count(patterns, lens, use_stream=True)
     capacity = expand_capacity(counts.cpu().numpy())
-    out = dev.locate_with_counts(patterns, capacity=capacity, use_stream=True)
+    out = dev.locate_with_counts(patterns, lens, capacity=capacity, use_stream=True)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     answered_at = time.time() - T_START
-    check_batch(torch, fm, dev, text, pats_np, patterns, counts, out)
+    check_batch(torch, fm, dev, text, pats_np, lens, patterns, counts, out)
     reps = max(8, min(32, int(4e6 // B)))
-    cq = measure(lambda: dev.count(patterns, use_stream=True), B, reps)
+    cq = measure(lambda: dev.count(patterns, lens, use_stream=True), B, reps)
     lq = measure(lambda: dev.locate_with_counts(
-        patterns, capacity=capacity, use_stream=True), B, reps)
-    log(f"[{tag}] B={B}: checks OK (dropped 0, {N_RECHECK} text re-checks, gather "
+        patterns, lens, capacity=capacity, use_stream=True), B, reps)
+    shape = (" mixed lengths" if lens is not None else "" if pats_np.shape[1] == PATTERN_LEN
+             else f" {pats_np.shape[1]}-symbol patterns")
+    log(f"[{tag}] B={B}{shape}: checks OK "
+        f"(dropped 0, {N_RECHECK} text re-checks, gather "
         f"parity, {N_ORACLE} host-oracle patterns); first call {warm_s:.3f} s; "
         f"count {max(cq) / 1e6:.3f} Mq/s (worst window {min(cq) / 1e6:.3f}), "
         f"locate {max(lq) / 1e6:.3f} Mq/s (worst window {min(lq) / 1e6:.3f}); "
@@ -254,23 +360,28 @@ def run_batch(torch, fm, dev, text, tag: str, pats_np, engine: str):
     return counts.cpu().numpy(), location_sets(locs, pids, valid, fm.text_len), out, answered_at
 
 
-def main_path(torch, ft) -> dict:
-    from sview_fmindex_tpu_torch.ops import stream_join as sj
+def sa_fill_check(torch, fm, dev, tag: str) -> None:
     from sview_fmindex_tpu_torch.ops.rank import u32
 
+    r = fm.sampling_ratio
+    check(torch.equal(u32(dev.sa[::r]), torch.tensor(fm.suffix_array.astype(np.int64),
+                                                      device=DEVICE)),
+          "filled SA != the blob's sampled SA at the sampled rows")
+    log(f"[{tag}] SA fill check: {fm.suffix_array.shape[0]} sampled rows OK")
+
+
+def main_path(torch, ft) -> dict:
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
     text = get_text(TEXT_SIZE)
     t0 = time.perf_counter()
     fm = get_blob(ft, text)
     log(f"[main] text {TEXT_SIZE} bp, blob ready in {time.perf_counter() - t0:.1f} s")
 
     sj.LAUNCHES.clear()
+    sj.LAUNCHES_BY_SIGMA.clear()
     dev = upload(torch, ft, fm, "main", dense_lut_entries=1 << 28,
                  dense_host_entries=1 << 20, sa_full="device", sa_fill_ratio=4)
-    r = fm.sampling_ratio
-    check(torch.equal(u32(dev.sa[::r]), torch.tensor(fm.suffix_array.astype(np.int64),
-                                                      device=DEVICE)),
-          "filled SA != the blob's sampled SA at the sampled rows")
-    log(f"[main] SA fill check: {fm.suffix_array.shape[0]} sampled rows OK")
+    sa_fill_check(torch, fm, dev, "main")
 
     rng = np.random.default_rng(SEED + 1)
     first_query_s = None
@@ -288,7 +399,8 @@ def main_path(torch, ft) -> dict:
         f"first query {first_query_s:.1f} s after start")
     check(launches.get("rank", 0) > 0, "rank-mode join kernel never launched")
     check(launches.get("decode", 0) > 0, "decode-mode join kernel never launched")
-    return dict(fm=fm, text=text, dev=dev, launches=launches, batches=batches)
+    return dict(fm=fm, text=text, dev=dev, by_sigma=dict(sj.LAUNCHES_BY_SIGMA),
+                batches=batches)
 
 
 def time_join(torch, join_fn, plain_fn, args) -> dict:
@@ -309,8 +421,10 @@ def time_join(torch, join_fn, plain_fn, args) -> dict:
     return times
 
 
-def kernel_case(torch, name, table, keys, payload, sigma, decode, launches, seg_base=None):
-    """One join mode against its plain version: exact equality, then times."""
+def kernel_case(torch, name, table, keys, payload, sigma, decode, launches: int,
+                seg_base=None):
+    """One join mode against its plain version: exact equality, then times.
+    ``launches``: the mode's count from its path's run."""
     from functools import partial
 
     from sview_fmindex_tpu_torch.ops import stream_join as sj
@@ -325,47 +439,90 @@ def kernel_case(torch, name, table, keys, payload, sigma, decode, launches, seg_
         err = max(err, int((sk - sp).abs().max()))
     check(err == 0, f"{name} (sigma={sigma}) differs from its plain version by {err}")
     times = time_join(torch, join, plain, (table, keys, payload, sigma, decode))
-    mode = ("decode" if decode else "rank") + ("" if seg_base is None else "_seg")
     log(f"[kernel] {name}: sigma={sigma} table {table.shape[0]}x{table.shape[1]}, "
         f"{keys.shape[0]} sorted keys (max {int(keys[-1])}): exact (max_abs_err 0); "
         f"kernel {times['ms']:.4f}/{times['ms2']:.4f} ms, plain "
         f"{times['plain_ms']:.4f}/{times['plain_ms2']:.4f} ms")
     return dict(name=name, route="cuda", source=JOIN_SRC, replaces=JOIN_TPU,
-                launches=launches.get(mode, 0), max_abs_err=err,
+                launches=launches, max_abs_err=err,
                 ms=min(times["ms"], times["ms2"]),
                 plain_ms=min(times["plain_ms"], times["plain_ms2"]))
 
 
-def kernel_phase(torch, dev, launches: dict) -> list[dict]:
-    rng = np.random.default_rng(SEED + 2)
+def kernel_keys(torch, dev, rng):
+    """KERNEL_KEYS sorted keys over [0, n] (one B=1M search pass), the
+    sentinel row's keys and key n included."""
     n = int(dev.count_arr[-1])
     special = torch.tensor([0, dev.sentinel - 1, dev.sentinel, dev.sentinel + 1, n],
                            device=DEVICE)
     keys = torch.cat([special, torch.from_numpy(
         rng.integers(0, n + 1, size=KERNEL_KEYS - special.shape[0])).to(DEVICE)])
-    keys = torch.sort(keys)[0]
+    return torch.sort(keys)[0]
+
+
+def kernel_cases(torch, dev, rng, cases, launches: dict, seg_base=None) -> list[dict]:
+    """``cases``: (name, table, sigma, decode) on ``dev``'s keys, each with
+    its mode's count from ``launches`` (keyed by (mode, sigma))."""
+    keys = kernel_keys(torch, dev, rng)
     out = []
-    for name, table, sigma, decode in (("join_rank", dev.pair_tbl, 16, False),
-                                       ("join_decode", dev.stream_tbl, 4, True)):
+    for name, table, sigma, decode in cases:
         payload = None if decode else torch.from_numpy(
             rng.integers(0, sigma, size=KERNEL_KEYS)).to(DEVICE)
-        out.append(kernel_case(torch, name, table, keys, payload, sigma, decode, launches))
+        mode = ("decode" if decode else "rank") + ("" if seg_base is None else "_seg")
+        out.append(kernel_case(torch, name, table, keys, payload, sigma, decode,
+                               launches.get((mode, sigma), 0), seg_base))
     return out
 
 
-def wide_checks(torch, ft, fm, text, tag: str, batches: dict, **upload_kw) -> dict:
+def any_kernel_timing(torch, table, keys, payload, sigma, decode) -> None:
+    """The run-time-sigma kernel at the main path's sigma 4 or 16 against
+    that sigma's own instantiation: exact equality, times in turns."""
+    from functools import partial
+
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    args = (table, keys, payload, sigma, decode, None, sj._seg_shift())
+    own = partial(sj._join_cuda, any_kernel=False)
+    any_ = partial(sj._join_cuda, any_kernel=True)
+    check(all(torch.equal(a, b) for a, b in zip(own(*args), any_(*args))
+              if a is not None), f"run-time-sigma kernel differs at sigma={sigma}")
+    times = time_join(torch, own, any_, args)
+    log(f"[kernel] run-time-sigma kernel at sigma={sigma} "
+        f"({'decode' if decode else 'rank'}): exact; sigma={sigma} instantiation "
+        f"{times['ms']:.4f}/{times['ms2']:.4f} ms, run-time-sigma "
+        f"{times['plain_ms']:.4f}/{times['plain_ms2']:.4f} ms")
+
+
+def kernel_phase(torch, dev, by_sigma: dict) -> list[dict]:
+    rng = np.random.default_rng(SEED + 2)
+    cases = [("join_rank", dev.pair_tbl, 16, False), ("join_decode", dev.stream_tbl, 4, True)]
+    out = kernel_cases(torch, dev, rng, cases, by_sigma)
+    keys = kernel_keys(torch, dev, rng)
+    for _, table, sigma, decode in cases:
+        payload = None if decode else torch.from_numpy(
+            rng.integers(0, sigma, size=KERNEL_KEYS)).to(DEVICE)
+        any_kernel_timing(torch, table, keys, payload, sigma, decode)
+    return out
+
+
+def wide_checks(torch, ft, fm, text, tag: str, batches: dict, dense_k: int = 10,
+                kernel_cases_of=None, **upload_kw) -> tuple[dict, list[dict]]:
     """Upload ``fm`` as a wide index and put every batch through run_batch
-    on the wide stream engine; where ``batches`` carries the main path's
-    answers, the wide ones must equal them.  Returns the launch counts."""
+    on the wide stream engine; where ``batches`` carries the narrow path's
+    answers, the wide ones must equal them.  ``kernel_cases_of(dev)``: the
+    segmented kernel cases to run on the wide tables.  Returns the launch
+    counts per mode and those cases' kernel summary entries."""
     from sview_fmindex_tpu_torch.ops import stream_join as sj
 
     sj.LAUNCHES.clear()
+    sj.LAUNCHES_BY_SIGMA.clear()
     dev = upload(torch, ft, fm, tag, dense_lut_entries=1 << 28,
                  dense_host_entries=1 << 20, **upload_kw)
-    check(dev.meta.wide_pos and dev.meta.dense_k == 10 and not dev.meta.has_sa_full,
-          "not a wide index with host dense seeds (dk 10) and a sampled SA")
+    check(dev.meta.wide_pos and dev.meta.dense_k == dense_k and not dev.meta.has_sa_full,
+          f"not a wide index with host dense seeds (dk {dense_k}) and a sampled SA")
     for B, want in batches.items():
-        counts, sets, out, _ = run_batch(torch, fm, dev, text, tag, want["pats"], "wide-stream")
+        counts, sets, out, _ = run_batch(torch, fm, dev, text, tag, want["pats"], "wide-stream",
+                                         want.get("lens"))
         if "counts" in want:
             check(np.array_equal(counts, want["counts"]), "wide counts != narrow counts")
             check(np.array_equal(sets, want["sets"]), "wide location sets != narrow ones")
@@ -376,14 +533,19 @@ def wide_checks(torch, ft, fm, text, tag: str, batches: dict, **upload_kw) -> di
             log(f"[{tag}] B={B}: {above} of {int(valid.sum())} located positions are >= 2^32")
             check(above > 0, "no located position at or above 2^32")
     launches = dict(sj.LAUNCHES)
-    log(f"[{tag}] kernel launches: {launches}")
-    check(launches.get("rank_seg", 0) > 0, "segmented rank mode never launched")
-    check(launches.get("decode_seg", 0) > 0, "segmented decode mode never launched")
+    by_sigma = dict(sj.LAUNCHES_BY_SIGMA)
+    log(f"[{tag}] kernel launches: {launches}; by (mode, sigma): {by_sigma}")
+    sigma = dev.meta.sigma
+    check(by_sigma.get(("rank_seg", sigma), 0) > 0, "segmented rank mode never launched")
+    check(by_sigma.get(("decode_seg", sigma), 0) > 0, "segmented decode mode never launched")
     check(not launches.get("rank") and not launches.get("decode"),
           "a wide index launched a narrow join mode")
+    kernels = [] if kernel_cases_of is None else kernel_cases(
+        torch, dev, np.random.default_rng(SEED + 7), kernel_cases_of(dev), by_sigma,
+        dev.seg_base)
     del dev
     torch.cuda.empty_cache()
-    return launches
+    return launches, kernels
 
 
 def walk_phase(torch, ft, fm, text, main: dict) -> dict:
@@ -431,12 +593,122 @@ def segmented_kernel_phase(torch, launches: dict) -> list[dict]:
         f"table {table.numel() * 4 / 2**30:.2f} GiB")
     payload = torch.randint(0, sigma, (KERNEL_KEYS,), generator=g, device=DEVICE)
     out = [kernel_case(torch, "join_rank_seg", table, keys, payload, sigma, False,
-                       launches, seg_base),
+                       launches.get("rank_seg", 0), seg_base),
            kernel_case(torch, "join_decode_seg", table, keys, None, sigma, True,
-                       launches, seg_base)]
+                       launches.get("decode_seg", 0), seg_base)]
     del table
     torch.cuda.empty_cache()
     return out
+
+
+def narrow_phase(torch, ft, tag: str, text, alphabet: str, batches: list, engine: str,
+                 kernel_cases_of) -> tuple:
+    """Phases A and B: the blob of ``alphabet`` over ``text``, the main
+    path's upload, every batch (a dict of ``pats`` and maybe ``lens``)
+    through run_batch, its answers stored in the dict, both narrow join
+    modes launched at the alphabet's sigma,
+    then ``kernel_cases_of(dev)`` against their plain version.  Returns
+    (fm, launches by (mode, sigma), kernel summary entries)."""
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    t0 = time.perf_counter()
+    fm = get_blob(ft, text, alphabet=alphabet)
+    sigma = fm.symbol_count
+    log(f"[{tag}] text {text.shape[0]} symbols, sigma={sigma}, blob ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sj.LAUNCHES.clear()
+    sj.LAUNCHES_BY_SIGMA.clear()
+    dev = upload(torch, ft, fm, tag, dense_lut_entries=1 << 28,
+                 dense_host_entries=1 << 20, sa_full="device", sa_fill_ratio=4)
+    check(dev.meta.stream_rows > 0 and (dev.meta.pair_rows > 0) == (sigma * sigma <= 63),
+          f"sigma={sigma} uploaded without its join tables")
+    sa_fill_check(torch, fm, dev, tag)
+    for want in batches:
+        counts, sets, _, _ = run_batch(torch, fm, dev, text, tag, want["pats"], engine,
+                                       want.get("lens"))
+        want.update(counts=counts, sets=sets)
+    by_sigma = dict(sj.LAUNCHES_BY_SIGMA)
+    log(f"[{tag}] kernel launches: {dict(sj.LAUNCHES)}; by (mode, sigma): {by_sigma}")
+    check(by_sigma.get(("rank", sigma), 0) > 0, f"rank mode never launched at sigma={sigma}")
+    check(by_sigma.get(("decode", sigma), 0) > 0, f"decode mode never launched at sigma={sigma}")
+    kernels = kernel_cases(torch, dev, np.random.default_rng(SEED + 6), kernel_cases_of(dev),
+                           by_sigma)
+    del dev
+    torch.cuda.empty_cache()
+    return fm, by_sigma, kernels
+
+
+def protein_phase(torch, ft) -> list[dict]:
+    """A: BASELINE config 4 at TEXT_SIZE residues, mixed 10-30 aa batches on
+    the stream engine (the per-step path), then the same blob wide."""
+    text = get_protein_text(TEXT_SIZE)
+    rng = np.random.default_rng(SEED + 5)
+    lo, hi = PROT_LENS
+    batches = []
+    for B in BATCHES:
+        lens = rng.integers(lo, hi + 1, size=B)
+        starts = rng.integers(0, TEXT_SIZE - hi, size=B)
+        pats = np.ascontiguousarray(text[starts[:, None] + np.arange(hi)])
+        pats[np.arange(hi)[None, :] >= lens[:, None]] = 0  # past each length: ignored
+        batches.append(dict(pats=pats, lens=lens))
+    fm, _, kernels = narrow_phase(
+        torch, ft, "prot", text, "prot", batches, "stream",
+        lambda dev: [("join_rank_sigma20", dev.stream_tbl, 20, False),
+                     ("join_decode_sigma20", dev.stream_tbl, 20, True)])
+    _, wide_kernels = wide_checks(
+        torch, ft, fm, text, "prot_wide", {WALK_BATCH: batches[0]}, dense_k=4,
+        kernel_cases_of=lambda dev: [("join_rank_seg_sigma20", dev.stream_tbl, 20, False),
+                                     ("join_decode_seg_sigma20", dev.stream_tbl, 20, True)],
+        force_wide=True)
+    return kernels + wide_kernels
+
+
+def wild_patterns(text: np.ndarray, edges: np.ndarray, rng, B: int, plen: int) -> np.ndarray:
+    """B windows of the wildcard text: none wholly inside an N run (those
+    match about a million places each), and 1% straddling a run's edge (a
+    position of ``edges`` and the next), so they hold the wildcard and have
+    few hits."""
+    size, N = text.shape[0], ord("N")
+
+    def windows(starts):
+        return np.ascontiguousarray(text[starts[:, None] + np.arange(plen)])
+
+    pats = windows(rng.integers(0, size - plen, size=B))
+    while True:
+        inside = np.flatnonzero((pats == N).all(1))
+        if not inside.size:
+            break
+        pats[inside] = windows(rng.integers(0, size - plen, size=inside.size))
+    edges = edges[(edges >= plen) & (edges < size - plen)]
+    at = rng.choice(edges, size=B // 100)
+    pats[rng.choice(B, size=B // 100, replace=False)] = windows(
+        at + 1 - rng.integers(1, plen, size=at.size))
+    return pats
+
+
+def wildcard_phase(torch, ft) -> list[dict]:
+    """B: the main path's text with N runs over 1% of it, five symbols (N
+    and every other byte the wildcard): the 20-bp batches take the sorted
+    pair chain over the 25-code pair table, the 21-bp one adds the odd
+    pass over the sigma=5 table; then the same blob wide."""
+    text = get_wild_text(TEXT_SIZE)
+    rng = np.random.default_rng(SEED + 8)
+    edges = np.flatnonzero(np.diff((text == ord("N")).view(np.int8)))  # N runs' edges
+    batches = [dict(pats=wild_patterns(text, edges, rng, B, plen))
+               for B, plen in ((BATCHES[0], WILD_LENS[0]), (BATCHES[1], WILD_LENS[0]),
+                               (WALK_BATCH, WILD_LENS[1]))]
+    n_wild = sum(int((w["pats"] == ord("N")).any(1).sum()) for w in batches)
+    log(f"[wild] {n_wild} patterns hold the wildcard")
+    check(n_wild > 0, "no pattern holds the wildcard")
+    fm, by_sigma, kernels = narrow_phase(
+        torch, ft, "wild", text, "wild", batches, "pair-stream",
+        lambda dev: [("join_rank_sigma5", dev.stream_tbl, 5, False),
+                     ("join_decode_sigma5", dev.stream_tbl, 5, True),
+                     ("join_rank_pair25", dev.pair_tbl, 25, False)])
+    check(by_sigma.get(("rank", 25), 0) > 0, "the 25-code pair table was never ranked")
+    wide_checks(torch, ft, fm, text, "wild_wide", {WALK_BATCH: batches[0]},
+                dense_k=8, force_wide=True)
+    return kernels
 
 
 def wide_text_phase(torch, ft) -> None:
@@ -467,13 +739,16 @@ def main() -> None:
 
     build_phase()
     main_res = main_path(torch, ft)
-    kernels = kernel_phase(torch, main_res.pop("dev"), main_res["launches"])
+    kernels = kernel_phase(torch, main_res.pop("dev"), main_res["by_sigma"])
     torch.cuda.empty_cache()
     fm, text = main_res["fm"], main_res["text"]
-    wide_launches = wide_checks(torch, ft, fm, text, "wide", main_res["batches"],
-                                force_wide=True)
+    wide_launches, _ = wide_checks(torch, ft, fm, text, "wide", main_res["batches"],
+                                   force_wide=True)
     walk_phase(torch, ft, fm, text, main_res)
     kernels += segmented_kernel_phase(torch, wide_launches)
+    del main_res, fm, text
+    kernels += protein_phase(torch, ft)
+    kernels += wildcard_phase(torch, ft)
     if WIDE_TEXT_SIZE:
         wide_text_phase(torch, ft)
     check("jax" not in sys.modules, "the port imported JAX")

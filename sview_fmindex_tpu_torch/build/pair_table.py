@@ -16,8 +16,8 @@ row); it is stored with code ``c* = bwt[j*]*sigma`` and the query subtracts
 LF targets of the k-th occurrence of symbol s are the consecutive rows
 ``C[s] + k``, so ``next`` over all entries is one gather at
 ``shifted(C[bwt[j]] + occ_j)``.  The table uses the stream layout
-(``ops/stream_join.py``) with sigma' = sigma^2 and is served by the same
-join kernel.
+(``ops/stream_join.py``) with sigma' = sigma^2 (4, 9, ..., 49 codes at
+sigma 2..7) and is served by the same join kernel.
 """
 from __future__ import annotations
 
@@ -63,13 +63,13 @@ def _sym_at(words, pos: torch.Tensor) -> torch.Tensor:
 
 def build_pair_table_device(meta, fused: torch.Tensor, count_arr: torch.Tensor,
                             sentinel: int, text_len: int):
-    """Returns (pair_tbl int32 [n_blocks, 32], c2 int64 [sigma^2], fix int64
-    [2] = (j_star, c_star)); ``j_star = 0xFFFFFFFF`` when no sentinel-target
-    entry exists (n <= 1).  Requires sigma^2 <= 63 (the join kernel's symbol
-    budget)."""
+    """Returns (pair_tbl int32 [n_blocks, RW(sigma^2)], c2 int64 [sigma^2],
+    fix int64 [2] = (j_star, c_star)); ``j_star = 0xFFFFFFFF`` when no
+    sentinel-target entry exists (n <= 1).  Requires sigma^2 <= 63 (the
+    join kernel's symbol budget)."""
     sigma = meta.sigma
     sigma2 = sigma * sigma
-    if sigma2 > 63:
+    if sigma2 > sj.MAX_SIGMA:
         raise ValueError(f"pair table needs sigma^2 <= 63, got sigma={sigma}")
     n = text_len
     dev = fused.device
@@ -97,8 +97,12 @@ def build_pair_table_device(meta, fused: torch.Tensor, count_arr: torch.Tensor,
         special = (src == sentinel - 1) & real
         shifted = torch.where(real, src + (src < sentinel).long(), 0)
         nxt = _sym_at(words, shifted)
-        # positions >= n are padding: code sigma2 is counted by nobody and
-        # sets no bit in the low P2 planes
+        # positions >= n are padding, stored as code sigma2: no checkpoint
+        # counts it (the bincount below drops it), but its plane bits are set
+        # unless sigma2 is a power of two (25 = 0b11001 at sigma 5).  No rank
+        # reads them: a key is at most n, and a rank counts only the
+        # positions before it in its block.  Decode mode, which reads the
+        # position itself, never runs on this table.
         code = torch.where(real, s * sigma + torch.where(special, 0, nxt), sigma2)
         if j_star == 0xFFFFFFFF:
             hits = torch.nonzero(special)
@@ -134,4 +138,4 @@ def _assemble(counts: torch.Tensor, words: list[torch.Tensor], n: int) -> torch.
         need = n_blocks * sj.LANES
         w = torch.cat([w, w.new_zeros(max(need - w.shape[0], 0))])[:need]
         lanes.append(w.reshape(n_blocks, sj.LANES))
-    return torch.cat([ckpt, *lanes], dim=1).contiguous()
+    return sj._rows(ckpt, torch.cat(lanes, dim=1))

@@ -20,9 +20,6 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# sigma values the join kernel is instantiated for (csrc/join.cu)
-JOIN_SIGMAS = (4, 16)
-
 _libs: dict[str, ctypes.CDLL] = {}
 # compiler output (ptxas register/spill report) and seconds per built library
 BUILD_LOG: dict[str, tuple[float, str]] = {}
@@ -65,9 +62,10 @@ def join_lib() -> ctypes.CDLL:
         p = ctypes.c_void_p
         # sigma, decode, tbl, n_rows, key, payload, seg_base, seg_shift,
         # rank, sym, n, stream
-        lib.sview_join.argtypes = [ctypes.c_int, ctypes.c_int, p, ctypes.c_int64,
-                                   p, p, p, ctypes.c_int, p, p, ctypes.c_int64, p]
-        lib.sview_join.restype = ctypes.c_int
+        for fn in (lib.sview_join, lib.sview_join_any):
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, p, ctypes.c_int64,
+                           p, p, p, ctypes.c_int, p, p, ctypes.c_int64, p]
+            fn.restype = ctypes.c_int
         lib.sview_cuda_error_string.argtypes = [ctypes.c_int]
         lib.sview_cuda_error_string.restype = ctypes.c_char_p
         _libs["join"] = lib

@@ -35,7 +35,6 @@ import torch
 from sview_fmindex_tpu.config import BuildError
 from sview_fmindex_tpu.encoders import EncodingTable
 
-from .. import kernels
 from ..build import dense_lut as dense_ops
 from ..ops import locate as locate_ops
 from ..ops import rank as rank_ops
@@ -165,8 +164,8 @@ class DeviceFmIndex:
         disables it); ``dense_host_entries`` caps the part built on the host
         (cached in ``dense_lut_cache``, an .npz keyed by a content digest),
         the remaining levels extend on the device.  ``stream`` derives the
-        sort-join stream table, ``pair`` the 2-step pair table (sigma = 4
-        and 16 codes: the join kernel's instantiations).  ``sa_full``: the
+        sort-join stream table (sigma <= 63, the join kernel's symbol
+        budget), ``pair`` the 2-step pair table (sigma^2 <= 63 codes).  ``sa_full``: the
         full (r=1) suffix array as a uint32 array, a path to a raw
         little-endian uint32 file (``FmIndexBuilder.build(sa_full_path=)``),
         or ``"device"`` to fill it on the device from the sampled SA strided
@@ -275,8 +274,8 @@ class DeviceFmIndex:
                              digest=content_digest)
         phase("dense_host")
 
-        use_stream_engine = stream and sigma in kernels.JOIN_SIGMAS
-        use_pair = pair and use_stream_engine and sigma * sigma in kernels.JOIN_SIGMAS
+        use_stream_engine = stream and sigma <= stream_join.MAX_SIGMA
+        use_pair = pair and use_stream_engine and sigma * sigma <= stream_join.MAX_SIGMA
         n_rows = stream_join.stream_rows(fm.text_len)
         meta = IndexMeta(
             sigma=sigma, kmer_size=fm.kmer_size, sampling_ratio=fm.sampling_ratio,
@@ -358,8 +357,8 @@ class DeviceFmIndex:
 
         As in the JAX upload: dense seeds built on the host only (up to
         ``dense_host_entries``; no device extension), no pair table and no
-        full SA, so locate always walks.  The stream engine needs sigma in
-        ``kernels.JOIN_SIGMAS``.  Positions are int64 here, so the JAX
+        full SA, so locate always walks.  The stream engine serves sigma <= 63
+        (the join kernel's symbol budget), as in the JAX upload.  Positions are int64 here, so the JAX
         envelope (``validate_wide``: uint32 block and SA folds, ratio <=
         2^15) bounds nothing; the segment-local stream checkpoints fit 32
         bits by construction (``SEG_BLOCKS``).
@@ -372,7 +371,7 @@ class DeviceFmIndex:
                                     text_len=fm.text_len)
         d_lo, d_hi = dense_ops.dense_lut(fm, dk, wide=True) if dk else (None, None)
         phase("dense_host")
-        use_stream_engine = stream and sigma in kernels.JOIN_SIGMAS
+        use_stream_engine = stream and sigma <= stream_join.MAX_SIGMA
         meta = IndexMeta(
             sigma=sigma, kmer_size=fm.kmer_size, sampling_ratio=fm.sampling_ratio,
             block_len=kind.block_len, num_planes=planes_eff, num_lanes=kind.num_lanes,
@@ -426,9 +425,10 @@ class DeviceFmIndex:
                 return None
             return _i64(vals(arrays[name]), device) if wide else _i32(arrays[name], device)
 
-        stream = bool(meta.stream_rows) and sigma in kernels.JOIN_SIGMAS
-        pair = (not wide and bool(meta.pair_rows) and stream
-                and sigma * sigma in kernels.JOIN_SIGMAS)
+        # the JAX upload gates both tables on the kernel's symbol budget
+        # (sigma <= 63, sigma^2 <= 63), as the port's does
+        stream = bool(meta.stream_rows)
+        pair = not wide and bool(meta.pair_rows)
         port_meta = IndexMeta(
             sigma=sigma, kmer_size=meta.kmer_size, sampling_ratio=meta.sampling_ratio,
             block_len=meta.block_len, num_planes=meta.num_planes,

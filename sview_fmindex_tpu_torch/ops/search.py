@@ -174,7 +174,8 @@ def pos_ranges(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int,
             return sj.rank_next_sorted(dev.pair_tbl, sentinel, pos, c, sigma2)
     else:
         # the row-major pair table is also a gather table: blocks of 128
-        # positions, 4 lanes per plane, sigma^2 codes
+        # positions, 4 lanes per plane, sigma^2 codes (the planes end each
+        # row, after the checkpoint's padding: ops.rank._plane_lanes)
         meta2 = dataclasses.replace(meta, sigma=sigma2, block_len=sj.SBL,
                                     num_planes=sj._planes_for(sigma2), num_lanes=sj.LANES)
 

@@ -4,16 +4,22 @@ Rank queries are sorted by position, answered by one pass of the join
 kernel over a row-major stream table, and scattered back to lane order.
 
 Stream table layout: int32 ``[n_blocks, RW]``, one row per ``SBL`` = 128
-positions (``n_blocks = text_len // 128 + 1``), ``RW = sigma + P*4``:
+positions (``n_blocks = text_len // 128 + 1``), ``RW = OFF + P*4``:
 
 - words ``0..sigma``: the block's checkpoint (count of each symbol before
   the block, ``bwm/mod.rs:126-134``),
-- words ``sigma + p*4 + l``: MSB-first uint32 lane l (positions [32l,
+- words ``sigma..OFF``: zero padding, ``OFF`` = sigma rounded up to a
+  multiple of 4, so each row and its planes are 16-byte aligned for the
+  kernel's vector loads,
+- words ``OFF + p*4 + l``: MSB-first uint32 lane l (positions [32l,
   32l+32)) of bit plane p, ``P = ceil(log2 sigma)``.
 
-That is 12 words (48 B) per block at sigma=4 and 32 words (128 B) at the
-pair table's sigma^2=16.  The JAX package's transposed, tiled TPU layout
-converts with :func:`stream_table_from_reference`.
+That is 12 words (48 B) per block at sigma=4, 32 words (128 B) at the pair
+table's sigma^2=16, 20 (80 B) at sigma=5, 40 (160 B) at sigma=20 and 48
+(192 B) at sigma^2=25.  Every sigma up to ``MAX_SIGMA`` = 63 is served, as
+in the JAX package.  The JAX package's transposed, tiled TPU layout (no
+padding between checkpoints and planes) converts with
+:func:`stream_table_from_reference`.
 
 Wide (u64-position) tables keep the same rows with SEGMENT-LOCAL
 checkpoints: each counts from the first block of its segment of
@@ -43,19 +49,36 @@ LANES = SBL // 32  # u32 lanes per plane per block
 # checkpoint fits 32 bits.  A power of two, read at call time.
 SEG_BLOCKS = 1 << 24
 
-# kernel launches per mode ("rank", "decode", "rank_seg", "decode_seg");
-# counted only where the CUDA kernel is launched, so a run can show its main
-# path went through it
+# the join kernel's symbol budget: a payload carries the symbol in 6 bits
+MAX_SIGMA = 63
+
+# kernel launches per mode ("rank", "decode", "rank_seg", "decode_seg"), and
+# per (mode, sigma) in LAUNCHES_BY_SIGMA; counted only where the CUDA kernel
+# is launched, so a run can show its main path went through it
 LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES_BY_SIGMA: collections.Counter = collections.Counter()
 
 
 def _planes_for(sigma: int) -> int:
     return max(1, (sigma - 1).bit_length())
 
 
+def _plane_off(sigma: int) -> int:
+    """Word offset of a row's first plane: sigma rounded up to 4."""
+    return -(-sigma // 4) * 4
+
+
 def _rw(sigma: int) -> int:
     """Words per stream-table row."""
-    return sigma + _planes_for(sigma) * LANES
+    return _plane_off(sigma) + _planes_for(sigma) * LANES
+
+
+def _rows(ckpt: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """Stream-layout rows from checkpoint words [n, sigma] and plane lanes
+    [n, P*4]: the zero padding goes between them."""
+    pad = _plane_off(ckpt.shape[1]) - ckpt.shape[1]
+    parts = [ckpt, ckpt.new_zeros(ckpt.shape[0], pad), planes] if pad else [ckpt, planes]
+    return torch.cat(parts, dim=1).contiguous()
 
 
 def stream_rows(text_len: int) -> int:
@@ -90,8 +113,7 @@ def derive_stream_table(meta, fused: torch.Tensor, text_len: int) -> torch.Tenso
     ``128 // BL`` fused blocks it covers.  Stream planes are the low
     ``_planes_for(sigma)`` fused planes.
     """
-    ckpt, planes = _regroup(meta, fused, text_len, meta.sigma)
-    return torch.cat([ckpt, planes], dim=1).contiguous()
+    return _rows(*_regroup(meta, fused, text_len, meta.sigma))
 
 
 def derive_stream_table_wide(meta, fused: torch.Tensor, text_len: int):
@@ -109,7 +131,7 @@ def derive_stream_table_wide(meta, fused: torch.Tensor, text_len: int):
     seg = torch.arange(glob.shape[0], device=glob.device) >> _seg_shift()
     seg_base = glob[::SEG_BLOCKS].contiguous()
     local = (glob - seg_base[seg]).to(torch.int32)
-    return torch.cat([local, planes], dim=1).contiguous(), seg_base
+    return _rows(local, planes), seg_base
 
 
 def stream_table_from_reference(tbl_np: np.ndarray, sigma: int, T: int) -> np.ndarray:
@@ -117,15 +139,20 @@ def stream_table_from_reference(tbl_np: np.ndarray, sigma: int, T: int) -> np.nd
     of tile t describing block ``t*T + b``) -> this port's rows (int32
     ``[n_tiles*T, RW]``, padding blocks included).
 
-    RW' is the reference's row count per tile: ``RW`` itself when it is a
+    The reference's rows hold ``rw = sigma + P*4`` words, checkpoints then
+    planes.  RW' is its row count per tile: ``rw`` itself when it is a
     multiple of 8, or a multiple of 4 that the reference groups two tiles
-    for (while two tiles fit 4 MiB), else ``RW`` padded to a multiple of 8.
+    for (while two tiles fit 4 MiB), else ``rw`` padded to a multiple of 8
+    (sigma=5: 17 -> 24; sigma^2=25: 45 -> 48).
     """
-    rw = _rw(sigma)
+    rw = sigma + _planes_for(sigma) * LANES
     grouped = rw % 8 == 0 or (rw % 4 == 0 and 8 * rw * T <= 4 << 20)
     rw_ref = rw if grouped else -(-rw // 8) * 8
-    rows = np.asarray(tbl_np).reshape(-1, rw_ref, T).transpose(0, 2, 1)
-    return np.ascontiguousarray(rows.reshape(-1, rw_ref)[:, :rw]).view(np.int32)
+    rows = np.asarray(tbl_np).reshape(-1, rw_ref, T).transpose(0, 2, 1).reshape(-1, rw_ref)
+    out = np.zeros((rows.shape[0], _rw(sigma)), np.int32)
+    out[:, :sigma] = rows[:, :sigma].view(np.int32)
+    out[:, _plane_off(sigma):] = rows[:, sigma:rw].view(np.int32)
+    return out
 
 
 def stream_table_wide_from_reference(tbl_np: np.ndarray, seg_base_np: np.ndarray,
@@ -177,11 +204,12 @@ def join_plain(table: torch.Tensor, key: torch.Tensor,
     popcount): the CPU path and the kernel's reference.  ``seg_shift``
     (segmented modes) defaults to log2(SEG_BLOCKS)."""
     P = _planes_for(sigma)
+    off = _plane_off(sigma)
     blk = key >> SBL_SHIFT
     ok = (key >= 0) & (blk < table.shape[0])
     rows = u32(table[torch.where(ok, blk, 0)])
     rem = key & (SBL - 1)
-    planes = rows[:, sigma:sigma + P * LANES].reshape(-1, P, LANES)
+    planes = rows[:, off:off + P * LANES].reshape(-1, P, LANES)
     if decode:
         lane = (rem >> 5)[:, None, None].expand(-1, P, 1)
         bits = (planes.gather(2, lane)[..., 0] >> (31 - (rem & 31))[:, None]) & 1
@@ -201,11 +229,13 @@ def join_plain(table: torch.Tensor, key: torch.Tensor,
     return rank, (torch.where(ok, sym, 0) if decode else None)
 
 
-def _join_cuda(table, key, payload, sigma, decode, seg_base, seg_shift):
+def _join_cuda(table, key, payload, sigma, decode, seg_base, seg_shift, any_kernel=False):
+    """Launch the kernel; ``any_kernel`` takes its run-time-sigma
+    instantiation at sigma 4 and 16 too (for timing it against theirs)."""
     from .. import kernels
 
-    if sigma not in kernels.JOIN_SIGMAS:
-        raise ValueError(f"join kernel is built for sigma in {kernels.JOIN_SIGMAS}, got {sigma}")
+    if not 1 <= sigma <= MAX_SIGMA:
+        raise ValueError(f"join kernel serves 1 <= sigma <= {MAX_SIGMA}, got {sigma}")
     dev = key.device
     if not (table.is_cuda and table.device == dev):
         raise ValueError(f"table on {table.device}, keys on {dev}")
@@ -235,9 +265,10 @@ def _join_cuda(table, key, payload, sigma, decode, seg_base, seg_shift):
     if n == 0:
         return rank, sym
     lib = kernels.join_lib()
+    entry = lib.sview_join_any if any_kernel else lib.sview_join
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sview_join(
+        err = entry(
             sigma, int(decode), table.data_ptr(), table.shape[0], key.data_ptr(),
             None if decode else payload.data_ptr(),
             None if seg_base is None else seg_base.data_ptr(), seg_shift,
@@ -245,8 +276,9 @@ def _join_cuda(table, key, payload, sigma, decode, seg_base, seg_shift):
             ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"join kernel launch failed: {kernels.cuda_error(err)}")
-    mode = "decode" if decode else "rank"
-    LAUNCHES[mode if seg_base is None else f"{mode}_seg"] += 1
+    mode = ("decode" if decode else "rank") + ("" if seg_base is None else "_seg")
+    LAUNCHES[mode] += 1
+    LAUNCHES_BY_SIGMA[mode, sigma] += 1
     return rank, sym
 
 

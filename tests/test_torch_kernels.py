@@ -2,7 +2,9 @@
 
 On the CPU, ``join_plain`` is held against a scalar Python statement of the
 kernel's contract on random table words (every bit pattern, payloads up to
-63, keys past the table), in the plain and the segmented modes.  On a card (``@pytest.mark.cuda``; skipped
+63, keys past the table, random padding words between checkpoints and
+planes), in the plain and the segmented modes, at sigma 2 to 63: the
+main path's 4 and 16 and the run-time-sigma kernel at every plane count.  On a card (``@pytest.mark.cuda``; skipped
 without one) the CUDA kernel must equal ``join_plain`` exactly, and the
 whole slice on CUDA must equal the CPU run.  This file imports no JAX, so on
 a machine without it the card tests run with
@@ -20,22 +22,24 @@ from sview_fmindex_tpu_torch.ops import stream_join as sj  # noqa: E402
 
 def _scalar_join(tbl, key, payload, sigma, decode, seg_base=None, seg_shift=0):
     """The kernel's contract, one query at a time in Python integers."""
-    P = sj._planes_for(sigma)
+    P = max(1, (sigma - 1).bit_length())
+    off = (sigma + 3) // 4 * 4  # planes start at sigma rounded up to 4 words
     blk = key >> 7
     if key < 0 or blk >= tbl.shape[0]:
         return 0, 0
     w = [int(x) & 0xFFFFFFFF for x in tbl[blk]]
+    assert len(w) == off + 4 * P
     rem = key & 127
     if decode:
         lane, bit = rem >> 5, 31 - (rem & 31)
-        sym = sum(((w[sigma + q * 4 + lane] >> bit) & 1) << q for q in range(P))
+        sym = sum(((w[off + q * 4 + lane] >> bit) & 1) << q for q in range(P))
     else:
         sym = payload & 63
     cnt = 0
     for lane in range(4):
         comb = 0xFFFFFFFF
         for q in range(P):
-            wq = w[sigma + q * 4 + lane]
+            wq = w[off + q * 4 + lane]
             comb &= wq if (sym >> q) & 1 else ~wq & 0xFFFFFFFF
         take = min(max(rem - 32 * lane, 0), 32)
         cnt += bin(comb & ((0xFFFFFFFF << (32 - take)) & 0xFFFFFFFF if take else 0)).count("1")
@@ -56,7 +60,13 @@ def _random_case(sigma, n_rows, n_keys, seed, seg_shift=None):
     return tbl, key, payload, seg_base
 
 
-MODES = [(4, False), (4, True), (16, False), (16, True)]
+# the main path's instantiations (4, 16), then the run-time-sigma kernel at
+# each plane count (1-6) and row padding: 2 and 3 (padded to 4 words), 5
+# and 7 (wildcard DNA; 8 words), 9 (the pass-through corpus alphabet; 12
+# words), 20 (protein; no padding), 25 (a pair table; 28 words), 49 (the
+# largest pair table) and 63 (the largest alphabet)
+SIGMAS = [4, 16, 2, 3, 5, 7, 9, 20, 25, 49, 63]
+MODES = [(s, d) for s in SIGMAS for d in (False, True)]
 
 
 @pytest.mark.parametrize("segmented", [False, True], ids=["plain", "seg"])
