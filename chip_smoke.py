@@ -66,18 +66,43 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    straddling an N run's edge, with the main path's checks; the kernel
    against its plain version at sigma 5 (rank, decode) and on the pair
    table (rank); then the same blob wide at B=100k.
-10. opt-in, with ``SMOKE_WIDE_TEXT_SIZE`` (> 2^32, e.g. 4.3e9): a u64 blob
+10. parallel, one rank: a one-rank NCCL group in this process
+   (``parallel.distributed.initialize``); ``ShardedFmIndex`` over the main
+   path's index (run right after phase 3, while it is resident) serves the
+   B=100k and B=1M batches (count, locate): answers equal to the unsharded
+   ones, ``dropped == 0``, rates and the join launches of the phase (zeroed
+   before, read after; the rank mode must have launched).  Then
+   ``RangeShardedFmIndex`` over the same blob, with the sampled SA (the
+   collective LF walk) and with ``sa_full`` (the device-filled SA copied to
+   the host): the same checks, rates, and the share of a locate call spent
+   in ``all_reduce`` (from a second, instrumented call); it launches no
+   hand kernel.
+11. parallel, two ranks on the one card (last, when the card is empty): two
+   child processes of this script, gloo (the ranks share a device), both on
+   ``cuda:0``, over a ``SMOKE_PAR_TEXT_SIZE`` bp blob (default 1e7) and
+   B=100k: ``ShardedFmIndex`` (each rank launches the join kernel on its
+   half), ``RangeShardedFmIndex`` with ``rs=2`` (walk and ``sa_full``) and
+   the ``(rs=2) x (dp=1)`` mesh; every rank compares with its own unsharded
+   answers and checks that neither ``jax`` nor ``sview_fmindex_tpu`` was
+   imported.  A child that fails or outlasts its deadline is killed and
+   fails the run.
+12. opt-in, with ``SMOKE_WIDE_TEXT_SIZE`` (> 2^32, e.g. 4.3e9): a u64 blob
    over that many bp (seed 42, built and cached under ``bench_cache/``) is
    uploaded without ``force_wide`` and put through phase 5's checks with
    half the patterns starting above 2^32; some located positions must be
    >= 2^32.  Off by default: the host build takes long and needs ~19
    bytes of host memory per bp, more than a 96 GiB host has at 4.3e9.
 
-The last lines are the kernel summary (JSON), the ``nvidia-smi`` line, and
-``{"ok": true, "device": {...}}``.
+No earlier phase was cut in depth to make room for phases 10 and 11.
+
+The last lines are the kernel summary (JSON: per kernel its launches on the
+main path, its time, the plain version's, and ``bound_ms``, the least time
+the card could take for the same inputs, see :func:`join_bound`), the
+``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -89,6 +114,12 @@ import numpy as np
 T_START = time.time()
 TEXT_SIZE = int(float(os.environ.get("SMOKE_TEXT_SIZE", "1e8")))
 WIDE_TEXT_SIZE = int(float(os.environ.get("SMOKE_WIDE_TEXT_SIZE", "0")))
+PAR_TEXT_SIZE = int(float(os.environ.get("SMOKE_PAR_TEXT_SIZE", "1e7")))
+PAR_BATCH = 100_000
+PAR_CHILD_DEADLINE = 420  # seconds for the two-rank run, start to exit
+PAR_GROUP_TIMEOUT = 120  # seconds, every collective of every group
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+ALU_OPS_PER_S = 67e12  # its non-tensor-core rate (float32; the table has no int32 row)
 SEED = 42
 PATTERN_LEN = 20
 BATCHES = (100_000, 1_000_000)
@@ -314,7 +345,8 @@ def upload(torch, ft, fm, tag: str, **kwargs):
     """Upload and log seconds per phase and device memory."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    dev = ft.to_device_torch(fm, DEVICE, **kwargs)
+    dev = ft.to_device_torch(fm, **kwargs)  # no device named: the card
+    check(dev.device.type == DEVICE, f"the default upload landed on {dev.device}")
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
     phases = ", ".join(f"{k} {v:.2f}" for k, v in dev.upload_phases.items())
@@ -381,6 +413,7 @@ def main_path(torch, ft) -> dict:
     sj.LAUNCHES_BY_SIGMA.clear()
     dev = upload(torch, ft, fm, "main", dense_lut_entries=1 << 28,
                  dense_host_entries=1 << 20, sa_full="device", sa_fill_ratio=4)
+    upload_launches = dict(sj.LAUNCHES_BY_SIGMA)
     sa_fill_check(torch, fm, dev, "main")
 
     rng = np.random.default_rng(SEED + 1)
@@ -395,12 +428,20 @@ def main_path(torch, ft) -> dict:
             first_query_s = answered_at
         batches[B] = dict(pats=pats_np, counts=counts, sets=sets)
     launches = dict(sj.LAUNCHES)
+    by_sigma = dict(sj.LAUNCHES_BY_SIGMA)
+    per_call = {}
+    patterns = torch.from_numpy(batches[BATCHES[-1]]["pats"]).to(DEVICE)
+    for name, fn in (("count", dev.count), ("locate", dev.locate)):
+        before = collections.Counter(sj.LAUNCHES_BY_SIGMA)
+        fn(patterns, use_stream=True)
+        per_call[name] = dict(collections.Counter(sj.LAUNCHES_BY_SIGMA) - before)
+    log(f"[main] join launches by (mode, sigma): at upload {upload_launches}; per call at "
+        f"B={BATCHES[-1]}: {per_call}")
     log(f"[main] kernel launches on the main path: {launches}; "
         f"first query {first_query_s:.1f} s after start")
     check(launches.get("rank", 0) > 0, "rank-mode join kernel never launched")
     check(launches.get("decode", 0) > 0, "decode-mode join kernel never launched")
-    return dict(fm=fm, text=text, dev=dev, by_sigma=dict(sj.LAUNCHES_BY_SIGMA),
-                batches=batches)
+    return dict(fm=fm, text=text, dev=dev, by_sigma=by_sigma, batches=batches)
 
 
 def time_join(torch, join_fn, plain_fn, args) -> dict:
@@ -421,6 +462,33 @@ def time_join(torch, join_fn, plain_fn, args) -> dict:
     return times
 
 
+def join_bound(torch, table, keys, sym, sigma, decode, seg_base) -> dict:
+    """The least time the card could take for one join over these inputs:
+    the larger of bytes over the card's memory rate and operations over its
+    non-tensor-core rate.  Bytes, each read or written once: the int64 keys,
+    the int64 payload (rank modes), of every table row that holds a key its
+    plane words and the checkpoint words of the symbols asked there (``sym``:
+    the payload, or the decoded symbols), the segment bases asked (segmented
+    modes), and the int64 results (rank; the symbol too in decode modes).
+    Operations per key: the plane combine, mask, popcount and sum over the
+    row's lanes, plus the address arithmetic."""
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    n = keys.shape[0]
+    planes = sj._planes_for(sigma)
+    rows = (keys >> sj.SBL_SHIFT).clamp(max=table.shape[0] - 1)
+    rows_touched = int(torch.unique(rows).numel())
+    # three int64 vectors either way: key, payload, rank or key, rank, symbol
+    nbytes = (3 * 8 * n + rows_touched * planes * sj.LANES * 4
+              + int(torch.unique(rows * 64 + sym).numel()) * 4)
+    if seg_base is not None:
+        nbytes += int(torch.unique((rows >> sj._seg_shift()) * 64 + sym).numel()) * 8
+    ops = n * (sj.LANES * (2 * planes + 3) + 8)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_ops=ops, rows_touched=rows_touched)
+
+
 def kernel_case(torch, name, table, keys, payload, sigma, decode, launches: int,
                 seg_base=None):
     """One join mode against its plain version: exact equality, then times.
@@ -439,14 +507,21 @@ def kernel_case(torch, name, table, keys, payload, sigma, decode, launches: int,
         err = max(err, int((sk - sp).abs().max()))
     check(err == 0, f"{name} (sigma={sigma}) differs from its plain version by {err}")
     times = time_join(torch, join, plain, (table, keys, payload, sigma, decode))
+    bound = join_bound(torch, table, keys, sk if decode else payload, sigma, decode, seg_base)
+    ms = min(times["ms"], times["ms2"])
     log(f"[kernel] {name}: sigma={sigma} table {table.shape[0]}x{table.shape[1]}, "
         f"{keys.shape[0]} sorted keys (max {int(keys[-1])}): exact (max_abs_err 0); "
         f"kernel {times['ms']:.4f}/{times['ms2']:.4f} ms, plain "
-        f"{times['plain_ms']:.4f}/{times['plain_ms2']:.4f} ms")
+        f"{times['plain_ms']:.4f}/{times['plain_ms2']:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+        f"by {bound['bound_by']} ({bound['bound_bytes']} bytes, {bound['rows_touched']} of "
+        f"{table.shape[0]} rows touched, {bound['bound_ops']} operations): "
+        f"{bound['bound_ms'] / ms:.2f} of the kernel's time; no single PyTorch call "
+        f"computes the join (library_ms null)")
     return dict(name=name, route="cuda", source=JOIN_SRC, replaces=JOIN_TPU,
-                launches=launches, max_abs_err=err,
-                ms=min(times["ms"], times["ms2"]),
-                plain_ms=min(times["plain_ms"], times["plain_ms2"]))
+                launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=min(times["plain_ms"], times["plain_ms2"]),
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=None,
+                bound_bytes=bound["bound_bytes"])
 
 
 def kernel_keys(torch, dev, rng):
@@ -711,6 +786,252 @@ def wildcard_phase(torch, ft) -> list[dict]:
     return kernels
 
 
+def fresh_store(tag: str) -> str:
+    """A path for a ``file://`` rendezvous store that no earlier run left."""
+    path = os.path.join(CACHE_DIR, f"store_{tag}_{os.getpid()}")
+    os.makedirs(CACHE_DIR, exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def host_rate(torch, fn, B: int, reps: int, windows: int = 3) -> list:
+    """Queries/s per window on the host clock around ``reps`` synchronised
+    calls (after one warm call): collectives staged through the host are
+    not on the device's clock."""
+    fn()
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out.append(B * reps / (time.perf_counter() - t0))
+    return out
+
+
+def check_sharded(torch, tag: str, obj, pats_np, want: dict, n: int, rate, reps: int,
+                  capacity_kw: str) -> None:
+    """One batch through ``obj.count`` and ``obj.locate`` (a ``ShardedFmIndex``
+    or ``RangeShardedFmIndex``): counts equal to the unsharded ones exactly,
+    locations equal as sets per pattern, nothing dropped; then queries/s of
+    both calls (``rate``: the clock), the locate at its auto-sized capacity."""
+    B = pats_np.shape[0]
+    patterns = torch.from_numpy(pats_np).to(DEVICE)
+    counts = obj.count(patterns, None)
+    locs, pids, valid, dropped = obj.locate(patterns, None)
+    torch.cuda.synchronize()
+    check(counts.is_cuda and locs.is_cuda, "a sharded answer is not on the card")
+    check(np.array_equal(counts.cpu().numpy(), want["counts"]), f"{tag}: counts != unsharded")
+    check(int(dropped.sum()) == 0, f"{tag}: dropped hits at the auto-sized capacity")
+    check(np.array_equal(location_sets(locs, pids, valid, n), want["sets"]),
+          f"{tag}: location sets != unsharded")
+    cap = {capacity_kw: locs.shape[0] // dropped.shape[0]}
+    cq = rate(lambda: obj.count(patterns, None), B, reps)
+    lq = rate(lambda: obj.locate(patterns, None, **cap), B, reps)
+    log(f"[{tag}] B={B}: counts and per-pattern location sets equal the unsharded ones, "
+        f"dropped 0; count {max(cq) / 1e6:.3f} Mq/s (worst window {min(cq) / 1e6:.3f}), "
+        f"locate {max(lq) / 1e6:.3f} Mq/s (worst window {min(lq) / 1e6:.3f})")
+
+
+def all_reduce_share(torch, tag: str, obj, pats_np) -> None:
+    """The share of one range-sharded locate call spent in ``all_reduce``:
+    a call with every collective synchronised and timed on the host clock."""
+    from sview_fmindex_tpu_torch.parallel import range_shard
+
+    patterns = torch.from_numpy(pats_np).to(DEVICE)
+    obj.locate(patterns, None)
+    for k in range_shard.STATS:
+        range_shard.STATS[k] = 0
+    range_shard.TIME_COLLECTIVES = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obj.locate(patterns, None)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        range_shard.TIME_COLLECTIVES = False
+    st = range_shard.STATS
+    log(f"[{tag}] B={pats_np.shape[0]} locate, collectives synchronised: {total * 1e3:.2f} ms, "
+        f"{st['all_reduce_calls']} all_reduce calls over {st['all_reduce_bytes']} bytes took "
+        f"{st['all_reduce_seconds'] * 1e3:.2f} ms: {st['all_reduce_seconds'] / total:.3f} of the call")
+
+
+def range_sharded_checks(torch, tag: str, fm, mesh, sa_host, batches: dict, rate, reps: int,
+                         **kw) -> None:
+    """``RangeShardedFmIndex`` over ``mesh`` with the sampled SA (the
+    collective walk) and with the full SA ``sa_host``: this rank holds its
+    block range and no more, every batch passes :func:`check_sharded`, and
+    no hand kernel is launched (the gather engine serves it)."""
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+    from sview_fmindex_tpu_torch.parallel.range_shard import RangeShardedFmIndex
+
+    D = mesh.size("rs")
+    for sub, sa_full in (("walk", None), ("sa_full", sa_host)):
+        sj.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        rs = RangeShardedFmIndex(fm, mesh, sa_full=sa_full, **kw)
+        torch.cuda.synchronize()
+        n_sa = (sa_host if sa_full is not None else fm.suffix_array).shape[0]
+        check(rs.fused.shape[0] == -(-fm.rank_checkpoints.shape[0] // D)
+              and rs.sa.shape[0] == -(-n_sa // D), f"{tag}: a rank holds more than its range")
+        check(rs.meta.has_sa_full == (sa_full is not None), f"{tag}: wrong SA form")
+        log(f"[{tag} {sub}] staged in {time.perf_counter() - t0:.2f} s: {rs.fused.shape[0]} of "
+            f"{fm.rank_checkpoints.shape[0]} fused rows, {rs.sa.shape[0]} of {n_sa} SA entries "
+            f"on this rank (rs={D}, dp={rs.dp_size}), dense_k={rs.meta.dense_k}")
+        for B, want in batches.items():
+            check_sharded(torch, f"{tag} {sub}", rs, want["pats"], want, fm.text_len, rate,
+                          reps, "capacity")
+        all_reduce_share(torch, f"{tag} {sub}", rs, batches[min(batches)]["pats"])
+        check(not sj.LAUNCHES, f"{tag}: range sharding launched a join kernel: {dict(sj.LAUNCHES)}")
+        del rs
+        torch.cuda.empty_cache()
+
+
+def parallel_one_rank_phase(torch, main: dict) -> None:
+    """Phase 10: a one-rank NCCL group in this process, both sharded classes
+    over the main path's index and blob."""
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+    from sview_fmindex_tpu_torch.parallel import distributed
+    from sview_fmindex_tpu_torch.parallel.mesh import make_mesh
+    from sview_fmindex_tpu_torch.parallel.query import ShardedFmIndex
+
+    fm, dev = main["fm"], main["dev"]
+    store = fresh_store("one")
+    rt = distributed.initialize(f"file://{store}", 1, 0, timeout=PAR_GROUP_TIMEOUT)
+    try:
+        check(rt.backend == "nccl" and rt.device.type == DEVICE,
+              f"one rank with a GPU of its own is not on NCCL: {rt}")
+        log(f"[par1] one rank, backend {rt.backend}, device {rt.device}")
+
+        def cuda_rate(fn, B, reps):
+            return measure(fn, B, reps, windows=3)
+
+        sj.LAUNCHES.clear()
+        sj.LAUNCHES_BY_SIGMA.clear()
+        sh = ShardedFmIndex(dev, make_mesh(axis="dp"))
+        check(sh.index.fused.data_ptr() == dev.fused.data_ptr(), "replicate copied a resident index")
+        for B, want in main["batches"].items():
+            check_sharded(torch, "par1 dp", sh, want["pats"], want, fm.text_len, cuda_rate,
+                          max(8, min(32, int(4e6 // B))), "capacity_per_shard")
+        launches = dict(sj.LAUNCHES_BY_SIGMA)
+        log(f"[par1 dp] join launches by (mode, sigma): {launches}")
+        check(launches.get(("rank", 16), 0) > 0, "ShardedFmIndex never launched the rank mode")
+
+        sa_host = dev.sa.cpu().numpy().view(np.uint32)  # the device-filled full SA
+        range_sharded_checks(torch, "par1 rs", fm, make_mesh(axis="rs"), sa_host,
+                             main["batches"], cuda_rate, 4)
+    finally:
+        distributed.shutdown()
+        if os.path.exists(store):
+            os.remove(store)
+
+
+def rank_main(rank: int, world: int, store: str) -> None:
+    """One rank of phase 11 (a child process of :func:`two_rank_phase`)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port's smoke run needs a GPU")
+    import sview_fmindex_tpu_torch as ft
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+    from sview_fmindex_tpu_torch.parallel import distributed
+    from sview_fmindex_tpu_torch.parallel.mesh import make_mesh
+    from sview_fmindex_tpu_torch.parallel.query import ShardedFmIndex
+
+    tag = f"par{world} r{rank}"
+    rt = distributed.initialize(f"file://{store}", world, rank, timeout=PAR_GROUP_TIMEOUT)
+    check(rt.backend == "gloo" and rt.device == torch.device("cuda", 0),
+          f"{world} ranks on one card are not on gloo and cuda:0: {rt}")
+    text = get_text(PAR_TEXT_SIZE)
+    fm = get_blob(ft, text)
+    dev = upload(torch, ft, fm, tag, dense_lut_entries=1 << 28, dense_host_entries=1 << 20,
+                 sa_full="device", sa_fill_ratio=4)
+    rng = np.random.default_rng(SEED + 9)
+    starts = rng.integers(0, PAR_TEXT_SIZE - PATTERN_LEN, size=PAR_BATCH)
+    pats_np = np.ascontiguousarray(text[starts[:, None] + np.arange(PATTERN_LEN)])
+    patterns = torch.from_numpy(pats_np).to(DEVICE)
+    counts = dev.count(patterns, use_stream=True)
+    locs, pids, valid, dropped = dev.locate(patterns, use_stream=True)
+    check(int(dropped[0]) == 0 and bool((counts >= 1).all()), f"{tag}: unsharded answers")
+    batches = {PAR_BATCH: dict(pats=pats_np, counts=counts.cpu().numpy(),
+                               sets=location_sets(locs, pids, valid, fm.text_len))}
+
+    def rate(fn, B, reps):
+        return host_rate(torch, fn, B, reps)
+
+    uq = rate(lambda: dev.count(patterns, use_stream=True), PAR_BATCH, 8)
+    log(f"[{tag}] unsharded on this rank while its peers run too: count "
+        f"{max(uq) / 1e6:.3f} Mq/s (worst window {min(uq) / 1e6:.3f}), host clock")
+    sj.LAUNCHES.clear()
+    sj.LAUNCHES_BY_SIGMA.clear()
+    sh = ShardedFmIndex(dev, make_mesh(axis="dp"))
+    check(sh.n_devices == world, f"{tag}: dp mesh of {sh.n_devices}")
+    check_sharded(torch, f"{tag} dp", sh, pats_np, batches[PAR_BATCH], fm.text_len, rate, 8,
+                  "capacity_per_shard")
+    launches = dict(sj.LAUNCHES_BY_SIGMA)
+    log(f"[{tag} dp] join launches by (mode, sigma) on this rank: {launches}")
+    check(launches.get(("rank", 16), 0) > 0, f"{tag}: this rank never launched the rank mode")
+    sa_host = dev.sa.cpu().numpy().view(np.uint32)
+    del sh, dev
+    torch.cuda.empty_cache()
+    range_sharded_checks(torch, f"{tag} rs", fm, make_mesh(axis="rs"), sa_host, batches, rate, 4)
+    range_sharded_checks(torch, f"{tag} rs x dp", fm,
+                         make_mesh(shape=(world, 1), axes=("rs", "dp")), sa_host, batches,
+                         rate, 4, dp_axis="dp")
+    check("jax" not in sys.modules, f"{tag}: the port imported JAX")
+    check("sview_fmindex_tpu" not in sys.modules, f"{tag}: the port imported the JAX package")
+    distributed.shutdown()
+    log(f"[{tag}] done")
+
+
+def two_rank_phase(ft) -> None:
+    """Phase 11: two child processes, both on cuda:0.  Their output is shown;
+    a child that fails, or runs past the deadline, is killed and fails the
+    run."""
+    world = 2
+    get_blob(ft, get_text(PAR_TEXT_SIZE))  # built once, before the ranks look for it
+    store = fresh_store("two")
+    outs = [os.path.join(CACHE_DIR, f"rank{r}_{os.getpid()}.out") for r in range(world)]
+    procs = []
+    failed = None
+    t0 = time.monotonic()
+    try:
+        for r in range(world):
+            with open(outs[r], "wb") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank", str(r), str(world),
+                     store], stdout=f, stderr=subprocess.STDOUT))
+        pending = set(range(world))
+        while pending and failed is None:
+            for r in sorted(pending):
+                rc = procs[r].poll()
+                if rc is not None:
+                    pending.discard(r)
+                    if rc != 0:
+                        failed = f"rank {r} exited with code {rc}"
+            if pending and time.monotonic() - t0 > PAR_CHILD_DEADLINE:
+                failed = f"ranks {sorted(pending)} still running after {PAR_CHILD_DEADLINE} s"
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for r in range(world):
+            if os.path.exists(outs[r]):
+                with open(outs[r], errors="replace") as f:
+                    sys.stdout.write(f.read())
+                os.remove(outs[r])
+        sys.stdout.flush()
+        if os.path.exists(store):
+            os.remove(store)
+    check(failed is None, f"two-rank run: {failed}")
+    log(f"[par2] both ranks done in {time.monotonic() - t0:.1f} s")
+
+
 def wide_text_phase(torch, ft) -> None:
     """Opt-in: a u64 blob over WIDE_TEXT_SIZE bp, served without force_wide."""
     check(WIDE_TEXT_SIZE > 2**32 + 2**20, "SMOKE_WIDE_TEXT_SIZE must exceed 2^32")
@@ -739,6 +1060,7 @@ def main() -> None:
 
     build_phase()
     main_res = main_path(torch, ft)
+    parallel_one_rank_phase(torch, main_res)
     kernels = kernel_phase(torch, main_res.pop("dev"), main_res["by_sigma"])
     torch.cuda.empty_cache()
     fm, text = main_res["fm"], main_res["text"]
@@ -749,9 +1071,12 @@ def main() -> None:
     del main_res, fm, text
     kernels += protein_phase(torch, ft)
     kernels += wildcard_phase(torch, ft)
+    torch.cuda.empty_cache()
+    two_rank_phase(ft)
     if WIDE_TEXT_SIZE:
         wide_text_phase(torch, ft)
     check("jax" not in sys.modules, "the port imported JAX")
+    check("sview_fmindex_tpu" not in sys.modules, "the port imported the JAX package")
     log(f"[done] {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -761,4 +1086,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 5 and sys.argv[1] == "--rank":
+        rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

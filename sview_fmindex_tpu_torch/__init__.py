@@ -1,18 +1,19 @@
 """sview-fmindex-tpu on PyTorch and CUDA: the FM-index engine ported to an
 NVIDIA H100.
 
-The framework-free host layer (configuration, encoders, the blob format,
-the builder, the host ``FmIndex`` and its query oracle, the host dense seed
-table) is imported from ``sview_fmindex_tpu`` and re-exported, so both
-packages share one blob format and one oracle; this package never imports
-JAX.  The device layer mirrors the JAX package's modules: ``ops.rank``,
+The package stands alone: it imports neither JAX nor ``sview_fmindex_tpu``.
+Its host layer (``config``, ``encoders``, ``blob``, ``build``, ``native``,
+``models.builder``, ``models.index``, ``utils.patterns``) is numpy and ctypes
+only and keeps the JAX package's module names and its blob format, byte for
+byte.  The device layer mirrors the JAX package's modules: ``ops.rank``,
 ``ops.stream_join`` (with the hand-written join kernel in ``csrc/join.cu``),
 ``ops.search``, ``ops.locate``, ``build.pair_table``, ``build.sa_fill``,
-``build.dense_lut``, ``models.device_index`` and ``bench.timing``.
+``build.dense_lut``, ``models.device_index``, ``bench.timing`` and
+``parallel`` (``torch.distributed`` in place of a device mesh).
 """
 
-from sview_fmindex_tpu import blob, config, encoders  # noqa: F401
-from sview_fmindex_tpu.config import (
+from . import blob, config, encoders  # noqa: F401
+from .config import (
     ALL_BLOCK_KINDS,
     BLOCK2_U32,
     BLOCK2_U64,
@@ -30,10 +31,10 @@ from sview_fmindex_tpu.config import (
     LookupTableConfig,
     SuffixArrayConfig,
 )
-from sview_fmindex_tpu.encoders import EncodingTable, PassThrough
-from sview_fmindex_tpu.models.builder import FmIndexBuilder
-from sview_fmindex_tpu.models.index import FmIndex
-from sview_fmindex_tpu.utils.patterns import pack_patterns
+from .encoders import EncodingTable, PassThrough
+from .models.builder import FmIndexBuilder
+from .models.index import FmIndex
+from .utils.patterns import pack_patterns
 
 from .models.device_index import DeviceFmIndex, IndexMeta, to_device_torch
 

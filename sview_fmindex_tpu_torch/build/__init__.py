@@ -1,7 +1,7 @@
 """Build layer of the PyTorch port (mirrors sview_fmindex_tpu.build).
 
-The host construction passes are framework-free and re-exported from the
-JAX package unchanged; the device derivations (``pair_table``, ``sa_fill``,
-``dense_lut``'s extension) are the port's own.
+The host construction passes (``suffix_array``, ``bwt``, ``bwm``,
+``count_array``, ``dense_lut``'s host table) are numpy only; the device
+derivations (``pair_table``, ``sa_fill``, ``dense_lut``'s extension) run on
+torch tensors.
 """
-from sview_fmindex_tpu.build import bwm, bwt, count_array, suffix_array  # noqa: F401

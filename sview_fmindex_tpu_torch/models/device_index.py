@@ -32,10 +32,8 @@ import warnings
 import numpy as np
 import torch
 
-from sview_fmindex_tpu.config import BuildError
-from sview_fmindex_tpu.encoders import EncodingTable
-
 from ..build import dense_lut as dense_ops
+from ..config import BuildError
 from ..ops import locate as locate_ops
 from ..ops import rank as rank_ops
 from ..ops import search as search_ops
@@ -91,16 +89,47 @@ def _lanes64(a) -> np.ndarray:
     return ((a[0] << np.uint64(32)) | a[1]).view(np.int64)
 
 
-def wide_fused_rows(fm, planes_eff: int) -> np.ndarray:
-    """Wide fused rows, uint32 [n_blocks, 2*sigma + planes*lanes]:
-    checkpoint hi words | lo words | plane lanes."""
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; None means the current CUDA device.
+    Without a CUDA device None raises: the CPU serves only a caller who asks
+    for it by name."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the index uploads to the current CUDA device by "
+            "default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def planes_effective(fm) -> int:
+    """ceil(log2 sigma) device planes: the blob's upper planes are all zero
+    for symbols below 2**p, so every upload drops them."""
+    return min(fm.block.num_planes, max(1, (fm.symbol_count - 1).bit_length()))
+
+
+def narrow_fused_rows(fm, planes_eff: int, b0: int = 0, b1: int | None = None) -> np.ndarray:
+    """Fused rows of blocks [b0, b1), uint32 [b1 - b0, sigma + planes*lanes]:
+    checkpoints | plane lanes.  Assembled per slice, so range-sharded staging
+    never holds the whole table."""
     sigma = fm.symbol_count
-    n_blocks = fm.rank_checkpoints.shape[0]
-    out = np.empty((n_blocks, 2 * sigma + planes_eff * fm.block.num_lanes), np.uint32)
-    ck = np.asarray(fm.rank_checkpoints, dtype=np.uint64)
+    b1 = fm.rank_checkpoints.shape[0] if b1 is None else b1
+    out = np.empty((b1 - b0, sigma + planes_eff * fm.block.num_lanes), np.uint32)
+    out[:, :sigma] = fm.rank_checkpoints[b0:b1].astype(np.uint32)
+    out[:, sigma:] = np.ascontiguousarray(fm.lanes[b0:b1, :planes_eff, :]).reshape(b1 - b0, -1)
+    return out
+
+
+def wide_fused_rows(fm, planes_eff: int, b0: int = 0, b1: int | None = None) -> np.ndarray:
+    """Wide fused rows of blocks [b0, b1), uint32 [b1 - b0, 2*sigma +
+    planes*lanes]: checkpoint hi words | lo words | plane lanes."""
+    sigma = fm.symbol_count
+    b1 = fm.rank_checkpoints.shape[0] if b1 is None else b1
+    out = np.empty((b1 - b0, 2 * sigma + planes_eff * fm.block.num_lanes), np.uint32)
+    ck = np.asarray(fm.rank_checkpoints[b0:b1], dtype=np.uint64)
     out[:, :sigma] = (ck >> np.uint64(32)).astype(np.uint32)
     out[:, sigma:2 * sigma] = (ck & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    out[:, 2 * sigma:] = np.ascontiguousarray(fm.lanes[:, :planes_eff, :]).reshape(n_blocks, -1)
+    out[:, 2 * sigma:] = np.ascontiguousarray(fm.lanes[b0:b1, :planes_eff, :]).reshape(b1 - b0, -1)
     return out
 
 
@@ -158,7 +187,7 @@ class DeviceFmIndex:
                   ckpt_derive: "bool | str" = "auto",
                   derived_cache_dir: str | None = None) -> "DeviceFmIndex":
         """Upload a host ``FmIndex`` (the blob's zero-copy views) to ``device``
-        (default: torch's default device).
+        (None: the current CUDA device; raises where there is none).
 
         ``dense_lut_entries`` bounds the dense seed table (None or 0
         disables it); ``dense_host_entries`` caps the part built on the host
@@ -179,7 +208,7 @@ class DeviceFmIndex:
         unused.  Texts of 2^32 bp and more, or ``force_wide``, upload the
         wide engine (:meth:`_from_host_wide`).
         """
-        device = torch.device(device) if device is not None else torch.get_default_device()
+        device = resolve_device(device)
         if force_wide or fm.text_len >= 2**32:
             return cls._from_host_wide(fm, device, stream,
                                        dense_host_entries if dense_lut_entries else 0)
@@ -238,15 +267,10 @@ class DeviceFmIndex:
 
         n_blocks = fm.rank_checkpoints.shape[0]
         sigma = fm.symbol_count
-        # only ceil(log2 sigma) planes carry information
-        planes_eff = min(kind.num_planes, max(1, (sigma - 1).bit_length()))
+        planes_eff = planes_effective(fm)
 
         def _build_fused():
-            fused = np.empty((n_blocks, sigma + planes_eff * kind.num_lanes), np.uint32)
-            fused[:, :sigma] = fm.rank_checkpoints.astype(np.uint32)
-            fused[:, sigma:] = np.ascontiguousarray(
-                fm.lanes[:, :planes_eff, :]).reshape(n_blocks, -1)
-            return fused
+            return narrow_fused_rows(fm, planes_eff)
 
         enc_table = _enc_table(fm)
 
@@ -365,7 +389,7 @@ class DeviceFmIndex:
         """
         kind = fm.block
         sigma = fm.symbol_count
-        planes_eff = min(kind.num_planes, max(1, (sigma - 1).bit_length()))
+        planes_eff = planes_effective(fm)
         phase = _PhaseClock(device)
         dk = dense_ops.auto_dense_k(sigma, fm.kmer_size, dense_host_entries or 0,
                                     text_len=fm.text_len)
@@ -409,7 +433,7 @@ class DeviceFmIndex:
         ``sa``, ``kmer_tbl``, ``count_arr``, the dense tables, ``sentinel``
         and ``seg_base`` become int64 values, and the pair placeholders are
         ignored."""
-        device = torch.device(device) if device is not None else torch.get_default_device()
+        device = resolve_device(device)
         sigma = meta.sigma
         wide = meta.wide_pos
         vals = _lanes64 if wide else np.asarray
@@ -563,15 +587,20 @@ class DeviceFmIndex:
 
 
 def _enc_table(fm) -> np.ndarray:
-    """256-entry byte -> symbol table (the identity for PassThrough)."""
-    if isinstance(fm.encoder, EncodingTable):
-        return fm.encoder.table.astype(np.int64)
+    """256-entry byte -> symbol table (the identity for PassThrough).
+    Decided by what the encoder offers (a ``table``), not by its class: an
+    ``FmIndex`` of the JAX package, whose classes are not this package's,
+    uploads the same way."""
+    table = getattr(fm.encoder, "table", None)
+    if table is not None:
+        return np.asarray(table).astype(np.int64)
     return np.arange(256, dtype=np.int64)
 
 
-def to_device_torch(fm, device, **kwargs) -> DeviceFmIndex:
-    """``FmIndex.to_device`` for the port: upload ``fm`` to ``device``
-    (keywords as ``DeviceFmIndex.from_host``)."""
+def to_device_torch(fm, device=None, **kwargs) -> DeviceFmIndex:
+    """``FmIndex.to_device`` for any host index of the blob format: upload
+    ``fm`` to ``device`` (None: the current CUDA device; keywords as
+    ``DeviceFmIndex.from_host``)."""
     return DeviceFmIndex.from_host(fm, device=device, **kwargs)
 
 

@@ -81,7 +81,9 @@ def lf_walk(r: int, count_arr, sa, rows, valid, decode):
     multiple of the sampling ratio ``r`` (``locate/mod.rs:21-35``), with the
     sentinel-row short-circuit.  ``decode(pos)`` returns (rank, symidx,
     is_sentinel) at every position (the narrow or wide decode, gather or
-    sort-join).  Returns int64 [capacity]."""
+    sort-join).  ``sa`` is the sampled SA, or a function from sample indices
+    to SA values (a range-sharded SA is gathered collectively).  Returns
+    int64 [capacity]."""
     pos = rows
     offset = torch.zeros_like(rows)
     loc = torch.zeros_like(rows)
@@ -97,7 +99,8 @@ def lf_walk(r: int, count_arr, sa, rows, valid, decode):
         step = need & ~is_sent
         pos = torch.where(step, count_arr[symidx] + rank, pos)
         offset = offset + step.long()
-    return torch.where(done, loc, u32(sa[pos // r]) + offset)
+    sampled = sa(pos // r) if callable(sa) else u32(sa[pos // r])
+    return torch.where(done, loc, sampled + offset)
 
 
 def walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid,

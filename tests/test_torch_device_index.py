@@ -25,7 +25,7 @@ torch.set_num_threads(1)
 import sview_fmindex_tpu as fmx  # noqa: E402
 from sview_fmindex_tpu.models.device_index import DeviceFmIndex as JaxDeviceFmIndex  # noqa: E402
 from sview_fmindex_tpu.utils.patterns import pack_patterns  # noqa: E402
-from sview_fmindex_tpu_torch import DeviceFmIndex, to_device_torch  # noqa: E402
+from sview_fmindex_tpu_torch import BuildError, DeviceFmIndex, to_device_torch  # noqa: E402
 from sview_fmindex_tpu_torch.ops import search as tsearch  # noqa: E402
 from sview_fmindex_tpu_torch.ops import stream_join as tsj  # noqa: E402
 
@@ -127,7 +127,7 @@ def test_sa_full_array_memmap_walk_and_stale_guard(index, tmp_path):
         _assert_same(fm, dev, jdev, pats, batch, lens, use_stream=True)
     stale = index["sa_full"].copy()
     stale[::2] = stale[::2][::-1]
-    with pytest.raises(fmx.BuildError, match="stale"):
+    with pytest.raises(BuildError, match="stale"):
         to_device_torch(fm, "cpu", sa_full=stale)
 
 
