@@ -11,14 +11,14 @@ with uniform 20-bp batches of 100k and 1M patterns through ``count`` and
 ``locate_with_counts(use_stream=True)``.  Then the same blob through the wide
 (u64-position) engine and through the stream-decode LF walk, and two more
 alphabets at the same size through the same entry points: protein (sigma
-20) and DNA with a wildcard (sigma 5, a pair table of 25 codes), whose
-tables go through the join kernel's run-time-sigma instantiations.
+20) and DNA with a wildcard (sigma 5, a pair table of 25 codes).
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. device: a CUDA device is required (there is no CPU path); prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build: compiles the join kernel from ``sview_fmindex_tpu_torch/csrc``.
+2. build: compiles the join kernel from ``sview_fmindex_tpu_torch/csrc``;
+   no instantiation may spill registers.
 3. main path: blob (native SA-IS, cached under ``bench_cache/``), upload
    (seconds per phase), the filled SA checked against the blob's sampled SA,
    then per batch: counts, locate, ``dropped == 0``, 200 locations against
@@ -29,8 +29,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 4. kernel: the join kernel against its plain-torch version on the main
    path's sigma=4 stream table and sigma^2=16 pair table, at 2M sorted keys
    (one B=1M search pass) including the key of the sentinel row and key n;
-   results must be exactly equal.  Prints both times, and the time of the
-   run-time-sigma kernel on the same two tables (exactly equal too).
+   results must be exactly equal.  Prints both times.
 5. wide: the main-path index is freed and the same blob is uploaded as a
    wide index (``force_wide=True``, dense_k 10 from the host, sampled SA),
    then the main path's batches go through the wide stream engine with the
@@ -45,7 +44,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    seeded synthetic sigma=4 table of 2^25 + 2^20 rows (3 segments, keys
    beyond 2^32), 2M sorted keys including both sides of each segment
    boundary, 2^32 - 1, 2^32, 2^32 + 1, the last key in the table and one
-   beyond it; exactly equal.  Prints both times.
+   beyond it; exactly equal.  Prints both times.  Then the main path's two
+   modes on seeded synthetic tables of the 1 Gbp deployment's size, which
+   miss L2 as every real index does: ``join_rank_hbm`` (sigma 16, 2^23 rows,
+   1 GiB) and ``join_decode_hbm`` (sigma 4, 2^23 rows), 2M sorted keys each.
+   Then the ragged-edge key sets of ``bench/join_cases.py`` (key counts off
+   the warp and block size, keys outside the table inside a warp, one row
+   for many keys, segment boundaries, unsorted keys) through kernel and plain
+   version on the card, all four modes at sigma 4, 16 and 20, exactly equal.
 8. protein (BASELINE config 4, the interop corpus case ``prot_b5u64_k2r2``
    at full size): ``SMOKE_TEXT_SIZE`` residues uniform over the 20 amino
    acids (seed 42), u32 positions, Block5<u64>, k=2, r=2, the main path's
@@ -93,7 +99,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    >= 2^32.  Off by default: the host build takes long and needs ~19
    bytes of host memory per bp, more than a 96 GiB host has at 4.3e9.
 
-No earlier phase was cut in depth to make room for phases 10 and 11.
+No earlier phase was cut in depth to make room for later ones.
 
 The last lines are the kernel summary (JSON: per kernel its launches on the
 main path, its time, the plain version's, and ``bound_ms``, the least time
@@ -128,7 +134,10 @@ N_ORACLE = 1000
 N_RECHECK = 200
 CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench_cache")
 KERNEL_KEYS = 1 << 21
+HEAD_START_CYCLES = 6_000_000  # ~3.5 ms of the card's clock before a timed run of launches
 SEG_ROWS = (1 << 25) + (1 << 20)  # 3 segments of 2^24 rows; keys reach 2^32 + 2^27
+HBM_ROWS = 1 << 23  # the tables of a 1 Gbp index: 2^30 positions / 128
+RAGGED_ROWS, RAGGED_SEG_ROWS = 40, 8
 DEVICE = "cuda"
 JOIN_SRC = "sview_fmindex_tpu_torch/csrc/join.cu"
 JOIN_TPU = "sview_fmindex_tpu/ops/stream_join.py:297"
@@ -174,8 +183,8 @@ def ptxas_report(out: str) -> list[str]:
     for ln in out.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            t = re.search(r"(join_kernel(?:_any)?)ILi(\d+)ELb([01])ELb([01])E", m.group(1))
-            name = (f"{t.group(1)}<{t.group(2)},{'decode' if t.group(3) == '1' else 'rank'}"
+            t = re.search(r"(join_kernel)ILi(\d+)ELb([01])ELb([01])E", m.group(1))
+            name = (f"{t.group(1)}<P={t.group(2)},{'decode' if t.group(3) == '1' else 'rank'}"
                     f"{',seg' if t.group(4) == '1' else ''}>" if t else m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -198,6 +207,8 @@ def build_phase() -> None:
     report = ptxas_report(out)
     log(f"[build] join kernel ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {secs:.2f} s), {len(report)} instantiations: {'; '.join(report)}")
+    check(report and all(r.endswith("spill 0/0 B") for r in report),
+          "a join kernel instantiation spills registers")
 
 
 def get_text(size: int) -> np.ndarray:
@@ -446,13 +457,17 @@ def main_path(torch, ft) -> dict:
 
 def time_join(torch, join_fn, plain_fn, args) -> dict:
     """Kernel and plain times in turns (kernel, plain, plain, kernel), 20
-    launches each, CUDA events."""
+    launches each, CUDA events.  The card first spins for a few
+    milliseconds, so the host has every launch queued before the first one
+    runs: a wrapper call costs the host about as long as the kernel runs, and
+    the events would otherwise time the host."""
     times = {}
     for label, fn in (("ms", join_fn), ("plain_ms", plain_fn),
                       ("plain_ms2", plain_fn), ("ms2", join_fn)):
         fn(*args)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HEAD_START_CYCLES)
         start.record()
         for _ in range(20):
             fn(*args)
@@ -549,35 +564,10 @@ def kernel_cases(torch, dev, rng, cases, launches: dict, seg_base=None) -> list[
     return out
 
 
-def any_kernel_timing(torch, table, keys, payload, sigma, decode) -> None:
-    """The run-time-sigma kernel at the main path's sigma 4 or 16 against
-    that sigma's own instantiation: exact equality, times in turns."""
-    from functools import partial
-
-    from sview_fmindex_tpu_torch.ops import stream_join as sj
-
-    args = (table, keys, payload, sigma, decode, None, sj._seg_shift())
-    own = partial(sj._join_cuda, any_kernel=False)
-    any_ = partial(sj._join_cuda, any_kernel=True)
-    check(all(torch.equal(a, b) for a, b in zip(own(*args), any_(*args))
-              if a is not None), f"run-time-sigma kernel differs at sigma={sigma}")
-    times = time_join(torch, own, any_, args)
-    log(f"[kernel] run-time-sigma kernel at sigma={sigma} "
-        f"({'decode' if decode else 'rank'}): exact; sigma={sigma} instantiation "
-        f"{times['ms']:.4f}/{times['ms2']:.4f} ms, run-time-sigma "
-        f"{times['plain_ms']:.4f}/{times['plain_ms2']:.4f} ms")
-
-
 def kernel_phase(torch, dev, by_sigma: dict) -> list[dict]:
     rng = np.random.default_rng(SEED + 2)
     cases = [("join_rank", dev.pair_tbl, 16, False), ("join_decode", dev.stream_tbl, 4, True)]
-    out = kernel_cases(torch, dev, rng, cases, by_sigma)
-    keys = kernel_keys(torch, dev, rng)
-    for _, table, sigma, decode in cases:
-        payload = None if decode else torch.from_numpy(
-            rng.integers(0, sigma, size=KERNEL_KEYS)).to(DEVICE)
-        any_kernel_timing(torch, table, keys, payload, sigma, decode)
-    return out
+    return kernel_cases(torch, dev, rng, cases, by_sigma)
 
 
 def wide_checks(torch, ft, fm, text, tag: str, batches: dict, dense_k: int = 10,
@@ -647,11 +637,7 @@ def segmented_kernel_phase(torch, launches: dict) -> list[dict]:
 
     sigma = 4
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
-    table = torch.randint(-2**31, 2**31, (SEG_ROWS, sj._rw(sigma)), generator=g,
-                          device=DEVICE).to(torch.int32)
-    # local checkpoints are counts below 2^31
-    table[:, :sigma] = torch.randint(0, 2**31, (SEG_ROWS, sigma), generator=g,
-                                     device=DEVICE).to(torch.int32)
+    table = synthetic_table(torch, g, SEG_ROWS, sigma)
     n_segs = -(-SEG_ROWS // sj.SEG_BLOCKS)
     seg_base = torch.randint(0, 2**35, (n_segs, sigma), generator=g, device=DEVICE)
     end = SEG_ROWS * sj.SBL
@@ -674,6 +660,77 @@ def segmented_kernel_phase(torch, launches: dict) -> list[dict]:
     del table
     torch.cuda.empty_cache()
     return out
+
+
+def synthetic_table(torch, g, rows: int, sigma: int):
+    """A seeded random table of ``rows`` rows: every bit pattern in the
+    planes, checkpoints below 2^31 (what a local count can be)."""
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    table = torch.randint(-2**31, 2**31, (rows, sj._rw(sigma)), generator=g,
+                          device=DEVICE).to(torch.int32)
+    table[:, :sigma] = torch.randint(0, 2**31, (rows, sigma), generator=g,
+                                     device=DEVICE).to(torch.int32)
+    return table
+
+
+def hbm_kernel_phase(torch, by_sigma: dict) -> list[dict]:
+    """The main path's two modes on tables of the 1 Gbp deployment's size.
+    ``launches``: the main path's count of the same mode and sigma, the
+    kernel these cases time."""
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    out = []
+    for name, sigma, decode in (("join_rank_hbm", 16, False), ("join_decode_hbm", 4, True)):
+        table = synthetic_table(torch, g, HBM_ROWS, sigma)
+        end = HBM_ROWS * sj.SBL
+        special = torch.tensor([0, end - 1, end], device=DEVICE)
+        keys = torch.sort(torch.cat([special, torch.randint(
+            0, end + 1, (KERNEL_KEYS - special.shape[0],), generator=g, device=DEVICE)]))[0]
+        payload = None if decode else torch.randint(0, sigma, (KERNEL_KEYS,), generator=g,
+                                                    device=DEVICE)
+        log(f"[kernel] {name}: table {table.numel() * 4 / 2**30:.2f} GiB")
+        out.append(kernel_case(torch, name, table, keys, payload, sigma, decode,
+                               by_sigma.get(("decode" if decode else "rank", sigma), 0)))
+        del table
+        torch.cuda.empty_cache()
+    return out
+
+
+def ragged_phase(torch) -> None:
+    """Every ragged-edge key set through kernel and plain version on the
+    card: all four modes at sigma 4, 16 (rows staged whole) and 20 (planes
+    only), 8-row segments; exactly equal."""
+    from sview_fmindex_tpu_torch.bench.join_cases import RAGGED_CASES, ragged_keys
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    old, n = sj.SEG_BLOCKS, 0
+    sj.SEG_BLOCKS = RAGGED_SEG_ROWS
+    try:
+        for sigma in (4, 16, 20):
+            table = synthetic_table(torch, g, RAGGED_ROWS, sigma)
+            seg_base = torch.randint(0, 2**35, (RAGGED_ROWS // RAGGED_SEG_ROWS, sigma),
+                                     generator=g, device=DEVICE)
+            for case in RAGGED_CASES:
+                keys = torch.from_numpy(ragged_keys(case, RAGGED_ROWS, RAGGED_SEG_ROWS,
+                                                    seed=sigma)).to(DEVICE)
+                payload = torch.randint(0, 64, keys.shape, generator=g, device=DEVICE)
+                for decode in (False, True):
+                    for base in (None, seg_base):
+                        pay = None if decode else payload
+                        got = sj.join(table, keys, pay, sigma, decode, base)
+                        want = sj.join_plain(table, keys, pay, sigma, decode, base)
+                        torch.cuda.synchronize()
+                        check(all(a is None or torch.equal(a, b) for a, b in zip(got, want)),
+                              f"ragged case {case} differs at sigma={sigma}, decode={decode}, "
+                              f"segmented={base is not None}")
+                        n += 1
+    finally:
+        sj.SEG_BLOCKS = old
+    log(f"[kernel] ragged edges: {n} runs ({len(RAGGED_CASES)} key sets x 3 sigmas x 4 modes) "
+        f"equal their plain version exactly")
 
 
 def narrow_phase(torch, ft, tag: str, text, alphabet: str, batches: list, engine: str,
@@ -1068,6 +1125,8 @@ def main() -> None:
                                    force_wide=True)
     walk_phase(torch, ft, fm, text, main_res)
     kernels += segmented_kernel_phase(torch, wide_launches)
+    kernels += hbm_kernel_phase(torch, main_res["by_sigma"])
+    ragged_phase(torch)
     del main_res, fm, text
     kernels += protein_phase(torch, ft)
     kernels += wildcard_phase(torch, ft)

@@ -62,10 +62,9 @@ def join_lib() -> ctypes.CDLL:
         p = ctypes.c_void_p
         # sigma, decode, tbl, n_rows, key, payload, seg_base, seg_shift,
         # rank, sym, n, stream
-        for fn in (lib.sview_join, lib.sview_join_any):
-            fn.argtypes = [ctypes.c_int, ctypes.c_int, p, ctypes.c_int64,
-                           p, p, p, ctypes.c_int, p, p, ctypes.c_int64, p]
-            fn.restype = ctypes.c_int
+        lib.sview_join.argtypes = [ctypes.c_int, ctypes.c_int, p, ctypes.c_int64,
+                                   p, p, p, ctypes.c_int, p, p, ctypes.c_int64, p]
+        lib.sview_join.restype = ctypes.c_int
         lib.sview_cuda_error_string.argtypes = [ctypes.c_int]
         lib.sview_cuda_error_string.restype = ctypes.c_char_p
         _libs["join"] = lib

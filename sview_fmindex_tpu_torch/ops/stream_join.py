@@ -8,13 +8,15 @@ positions (``n_blocks = text_len // 128 + 1``), ``RW = OFF + P*4``:
 
 - words ``0..sigma``: the block's checkpoint (count of each symbol before
   the block, ``bwm/mod.rs:126-134``),
-- words ``sigma..OFF``: zero padding, ``OFF`` = sigma rounded up to a
-  multiple of 4, so each row and its planes are 16-byte aligned for the
-  kernel's vector loads,
+- words ``sigma..OFF``: zero padding; ``OFF`` (:func:`_plane_off`) is sigma
+  rounded up to a multiple of 4, so each row and its planes are 16-byte
+  aligned for the kernel's vector copies, plus 4 where the row would
+  otherwise be 48 bytes modulo 64 and straddle one 64-byte piece of device
+  memory more than it must,
 - words ``OFF + p*4 + l``: MSB-first uint32 lane l (positions [32l,
-  32l+32)) of bit plane p, ``P = ceil(log2 sigma)``.
+  32l+32)) of bit plane p, ``P = ceil(log2 sigma)``; the planes end the row.
 
-That is 12 words (48 B) per block at sigma=4, 32 words (128 B) at the pair
+That is 16 words (64 B) per block at sigma=4, 32 words (128 B) at the pair
 table's sigma^2=16, 20 (80 B) at sigma=5, 40 (160 B) at sigma=20 and 48
 (192 B) at sigma^2=25.  Every sigma up to ``MAX_SIGMA`` = 63 is served, as
 in the JAX package.  The JAX package's transposed, tiled TPU layout (no
@@ -64,8 +66,16 @@ def _planes_for(sigma: int) -> int:
 
 
 def _plane_off(sigma: int) -> int:
-    """Word offset of a row's first plane: sigma rounded up to 4."""
-    return -(-sigma // 4) * 4
+    """Word offset of a row's first plane, the one place that decides the
+    row layout (``plane_offset`` in ``csrc/join.cu`` states the same rule):
+    sigma rounded up to 4 words, and 4 words more where the row would
+    otherwise be 48 bytes modulo 64.  Device memory comes in aligned 64-byte
+    pieces; such a row would straddle one more piece than it must at two of
+    every four positions, the padded row never does."""
+    off = -(-sigma // 4) * 4
+    if (off + _planes_for(sigma) * LANES) % 16 == 12:
+        off += 4
+    return off
 
 
 def _rw(sigma: int) -> int:
@@ -229,9 +239,8 @@ def join_plain(table: torch.Tensor, key: torch.Tensor,
     return rank, (torch.where(ok, sym, 0) if decode else None)
 
 
-def _join_cuda(table, key, payload, sigma, decode, seg_base, seg_shift, any_kernel=False):
-    """Launch the kernel; ``any_kernel`` takes its run-time-sigma
-    instantiation at sigma 4 and 16 too (for timing it against theirs)."""
+def _join_cuda(table, key, payload, sigma, decode, seg_base, seg_shift):
+    """Check the arguments and launch the kernel."""
     from .. import kernels
 
     if not 1 <= sigma <= MAX_SIGMA:
@@ -265,10 +274,9 @@ def _join_cuda(table, key, payload, sigma, decode, seg_base, seg_shift, any_kern
     if n == 0:
         return rank, sym
     lib = kernels.join_lib()
-    entry = lib.sview_join_any if any_kernel else lib.sview_join
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(
+        err = lib.sview_join(
             sigma, int(decode), table.data_ptr(), table.shape[0], key.data_ptr(),
             None if decode else payload.data_ptr(),
             None if seg_base is None else seg_base.data_ptr(), seg_shift,

@@ -4,9 +4,15 @@ On the CPU, ``join_plain`` is held against a scalar Python statement of the
 kernel's contract on random table words (every bit pattern, payloads up to
 63, keys past the table, random padding words between checkpoints and
 planes), in the plain and the segmented modes, at sigma 2 to 63: the
-main path's 4 and 16 and the run-time-sigma kernel at every plane count.  On a card (``@pytest.mark.cuda``; skipped
+main path's 4 and 16 and every plane count and row padding.  On a card (``@pytest.mark.cuda``; skipped
 without one) the CUDA kernel must equal ``join_plain`` exactly, and the
-whole slice on CUDA must equal the CPU run.  This file imports no JAX, so on
+whole slice on CUDA must equal the CPU run.  The ragged-edge key sets of
+``bench/join_cases.py`` (key counts off the warp and block size, keys
+outside the table inside a warp, one row for many keys, segment boundaries,
+unsorted keys) go through ``join_plain`` against the scalar contract here and
+through the kernel against ``join_plain`` on a card, in all four modes, at a
+sigma whose rows are staged whole and one whose planes alone are.  This file
+imports no JAX, so on
 a machine without it the card tests run with
 ``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``.
 """
@@ -17,13 +23,14 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import sview_fmindex_tpu_torch as ft  # noqa: E402
+from sview_fmindex_tpu_torch.bench.join_cases import RAGGED_CASES, ragged_keys  # noqa: E402
 from sview_fmindex_tpu_torch.ops import stream_join as sj  # noqa: E402
 
 
 def _scalar_join(tbl, key, payload, sigma, decode, seg_base=None, seg_shift=0):
     """The kernel's contract, one query at a time in Python integers."""
     P = max(1, (sigma - 1).bit_length())
-    off = (sigma + 3) // 4 * 4  # planes start at sigma rounded up to 4 words
+    off = sj._plane_off(sigma)  # planes start after the checkpoint's padding
     blk = key >> 7
     if key < 0 or blk >= tbl.shape[0]:
         return 0, 0
@@ -60,11 +67,12 @@ def _random_case(sigma, n_rows, n_keys, seed, seg_shift=None):
     return tbl, key, payload, seg_base
 
 
-# the main path's instantiations (4, 16), then the run-time-sigma kernel at
-# each plane count (1-6) and row padding: 2 and 3 (padded to 4 words), 5
-# and 7 (wildcard DNA; 8 words), 9 (the pass-through corpus alphabet; 12
-# words), 20 (protein; no padding), 25 (a pair table; 28 words), 49 (the
-# largest pair table) and 63 (the largest alphabet)
+# the main path's sigma 4 and 16, then each plane count (1-6) and row
+# padding (the checkpoint words before the planes): 2 (4 words), 3 (8, the
+# 64-byte row), 5 and 7 (wildcard DNA; 8 words), 9 (the pass-through corpus
+# alphabet; 16 words, the 128-byte row), 20 (protein; no padding), 25 (a
+# pair table; 28 words), 49 (the largest pair table) and 63 (the largest
+# alphabet)
 SIGMAS = [4, 16, 2, 3, 5, 7, 9, 20, 25, 49, 63]
 MODES = [(s, d) for s in SIGMAS for d in (False, True)]
 
@@ -86,11 +94,60 @@ def test_join_plain_matches_scalar_contract(sigma, decode, segmented):
             assert int(sym[i]) == want_sym, i
 
 
+RAGGED_ROWS, RAGGED_SEG_SHIFT = 40, 3  # 5 segments of 8 rows
+# (sigma, decode, segmented): rows staged whole (sigma 4) and planes only (20)
+RAGGED_MODES = [(s, d, g) for s in (4, 20) for d in (False, True) for g in (False, True)]
+RAGGED_IDS = [f"sigma{s}-{'decode' if d else 'rank'}{'_seg' if g else ''}"
+              for s, d, g in RAGGED_MODES]
+
+
+def _ragged_case(case, sigma, decode, segmented):
+    seed = RAGGED_CASES.index(case) * 8 + sigma + 2 * decode + segmented
+    tbl, _, _, seg_base = _random_case(sigma, RAGGED_ROWS, 1, seed,
+                                       RAGGED_SEG_SHIFT if segmented else None)
+    key = ragged_keys(case, RAGGED_ROWS, 1 << RAGGED_SEG_SHIFT, seed)
+    payload = np.random.default_rng(seed).integers(0, 64, size=key.shape[0])
+    return tbl, key, payload, seg_base
+
+
+@pytest.mark.parametrize("sigma,decode,segmented", RAGGED_MODES, ids=RAGGED_IDS)
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_join_plain_ragged_edges(case, sigma, decode, segmented):
+    tbl, key, payload, seg_base = _ragged_case(case, sigma, decode, segmented)
+    rank, sym = sj.join_plain(torch.from_numpy(tbl), torch.from_numpy(key),
+                              None if decode else torch.from_numpy(payload), sigma, decode,
+                              None if seg_base is None else torch.from_numpy(seg_base),
+                              RAGGED_SEG_SHIFT)
+    assert rank.shape == key.shape
+    for i in range(key.shape[0]):
+        want_rank, want_sym = _scalar_join(tbl, int(key[i]), int(payload[i]), sigma, decode,
+                                           seg_base, RAGGED_SEG_SHIFT)
+        assert int(rank[i]) == want_rank, i
+        if decode:
+            assert int(sym[i]) == want_sym, i
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma,decode,segmented", RAGGED_MODES, ids=RAGGED_IDS)
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_cuda_kernel_ragged_edges(cuda, case, sigma, decode, segmented, monkeypatch):
+    monkeypatch.setattr(sj, "SEG_BLOCKS", 1 << RAGGED_SEG_SHIFT)
+    tbl, key, payload, seg_base = _ragged_case(case, sigma, decode, segmented)
+    tbl, key = torch.from_numpy(tbl).to(cuda), torch.from_numpy(key).to(cuda)
+    payload = None if decode else torch.from_numpy(payload).to(cuda)
+    seg_base = None if seg_base is None else torch.from_numpy(seg_base).to(cuda)
+    rank, sym = sj.join(tbl, key, payload, sigma, decode, seg_base)
+    rank_p, sym_p = sj.join_plain(tbl, key, payload, sigma, decode, seg_base, RAGGED_SEG_SHIFT)
+    torch.cuda.synchronize()
+    assert torch.equal(rank, rank_p)
+    assert (sym is None and sym_p is None) or torch.equal(sym, sym_p)
 
 
 @pytest.mark.cuda

@@ -115,6 +115,61 @@ def test_join_decode_matches_reference(indexes, pair):
     np.testing.assert_array_equal(g_sym[keep], w_sym[keep].astype(np.int64))
 
 
+@pytest.mark.parametrize("sigma", [1, 2, 3, 4, 5, 8, 9, 12, 16, 20, 24, 25, 36, 49, 63])
+def test_row_layout_never_straddles_a_64_byte_piece_more_than_it_must(sigma):
+    """One rule (``_plane_off``) decides the row: 16-byte aligned planes that
+    end the row, the checkpoint padded to 4 words and by 4 more where the row
+    would be 48 bytes modulo 64; ``_rows`` and the reference adapter follow it."""
+    P = max(1, (sigma - 1).bit_length())
+    off, rw = tsj._plane_off(sigma), tsj._rw(sigma)
+    base = -(-sigma // 4) * 4
+    assert rw == off + 4 * P and off % 4 == 0
+    assert off == base + (4 if (base + 4 * P) * 4 % 64 == 48 else 0)
+    assert rw * 4 % 64 != 48 and rw * 4 - (base + 4 * P) * 4 in (0, 16)
+    if sigma in (3, 4):
+        assert rw * 4 == 64
+    rng = np.random.default_rng(sigma)
+    ckpt = rng.integers(0, 2**31, size=(T, sigma)).astype(np.int32)
+    planes = rng.integers(-2**31, 2**31, size=(T, 4 * P)).astype(np.int32)
+    rows = tsj._rows(torch.from_numpy(ckpt), torch.from_numpy(planes)).numpy()
+    assert rows.shape == (T, rw) and not rows[:, sigma:off].any()
+    np.testing.assert_array_equal(rows[:, :sigma], ckpt)
+    np.testing.assert_array_equal(rows[:, rw - 4 * P:], planes)
+    # one reference tile: [RW', T], checkpoints then planes then its own padding
+    rw_ref = jsj._layout(sigma, T)[0]
+    ref = np.zeros((rw_ref, T), np.int32)
+    ref[:sigma] = ckpt.T
+    ref[sigma:sigma + 4 * P] = planes.T
+    np.testing.assert_array_equal(tsj.stream_table_from_reference(ref, sigma, T), rows)
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["sigma4", "sigma16"])
+def test_gather_engine_reads_stream_layout_rows(indexes, pair):
+    """A stream-layout table is also a gather table (the pair gather reads
+    the pair table so): the planes end each row, whatever padding lies
+    before them.  Equal to the JAX package's sorted rank."""
+    from sview_fmindex_tpu_torch.ops.rank import rank_next
+
+    fm, jdev, tdev = indexes
+    rng = np.random.default_rng(21 + pair)
+    pos = _queries(fm, rng)
+    if pair:
+        sigma, jtbl, ttbl = 16, jdev.pair_tbl, tdev.pair_tbl
+        jmeta = dataclasses.replace(jdev.meta, sigma=16, stream_rows=jdev.meta.pair_rows)
+    else:
+        sigma, jtbl, ttbl = 4, jdev.stream_tbl, tdev.stream_tbl
+        jmeta = jdev.meta
+    assert ttbl.shape[1] * 4 == (128 if pair else 64)
+    sym = rng.integers(0, sigma, size=pos.shape[0]).astype(np.int64)
+    want = np.asarray(jsj.rank_next_sorted(
+        jmeta, jtbl, jdev.sentinel, jnp.asarray(pos, jnp.uint32),
+        jnp.asarray(sym, jnp.int32), T=T, C=1024))
+    meta2 = dataclasses.replace(tdev.meta, sigma=sigma, block_len=tsj.SBL,
+                                num_planes=tsj._planes_for(sigma), num_lanes=tsj.LANES)
+    got = rank_next(meta2, ttbl, tdev.sentinel, torch.from_numpy(pos), torch.from_numpy(sym))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
 def test_join_on_cpu_is_the_plain_version_and_order_free(indexes):
     _, _, tdev = indexes
     rng = np.random.default_rng(11)
