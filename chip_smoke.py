@@ -29,7 +29,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 4. kernel: the join kernel against its plain-torch version on the main
    path's sigma=4 stream table and sigma^2=16 pair table, at 2M sorted keys
    (one B=1M search pass) including the key of the sentinel row and key n;
-   results must be exactly equal.  Prints both times.
+   results must be exactly equal.  Prints both times.  Three cases: rank on
+   the pair table and decode on the stream table (the main path's launches),
+   and rank on the stream table (``join_rank_sigma4``: the launch of the
+   micro suite's ``rank`` group in phase 12, whose count it carries).
 5. wide: the main-path index is freed and the same blob is uploaded as a
    wide index (``force_wide=True``, dense_k 10 from the host, sampled SA),
    then the main path's batches go through the wide stream engine with the
@@ -92,14 +95,42 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    answers and checks that neither ``jax`` nor ``sview_fmindex_tpu`` was
    imported.  A child that fails or outlasts its deadline is killed and
    fails the run.
-12. opt-in, with ``SMOKE_WIDE_TEXT_SIZE`` (> 2^32, e.g. 4.3e9): a u64 blob
+12. bench surfaces (after phase 9, before phase 11, on an empty card): the
+   entry points that measure, each step failing the run if it raises, exits
+   non-zero or prints a malformed line.  (0) a sigma-6 PassThrough index on
+   the card is sent a batch with the symbol 6: ``ValueError`` before anything
+   reaches the device, and the next query on the same CUDA context answers.
+   (1) ``bench_torch.py`` as a subprocess at ``SMOKE_TEXT_SIZE`` (it reads
+   the blob phase 3 cached): its one JSON line has every key, both batches,
+   best and worst window per rate, printed beside phase 3's rates; its own
+   launch counts show the decode mode in its upload and the rank mode at
+   sigma 16 in one ``count`` and one ``locate`` call per batch.  (2)
+   ``sview_fmindex_tpu_torch.bench.micro`` in this process, B = 1k..1M, every
+   group, over an index with the main path's seed depth: every group has
+   its rows, the rank mode launched in the ``rank`` and ``search`` groups
+   (the suite itself holds the kernel's answers against ``join_plain`` and
+   the gather engine once per B), and the ``search`` rows are printed as the
+   gather-against-stream crossover table.  (3) the CLI end to end in a temporary directory at 1e6 bp, 1000
+   patterns, cold 10%: ``generate-text``, ``generate-pattern``, ``build -a
+   memory``, ``locate -a memory`` and ``locate -a device --serve 8``; the two
+   result files are byte-identical.  (4) ``run_benchmark_torch.py
+   --algorithms mmap,device --patterns 1000 --colds 0.1`` as a subprocess:
+   exit 0, two CSV rows, the device cell's phases and launches printed.  (5)
+   ``bench.scaling.run_scaling`` with one rank (NCCL, in this process) and two
+   (gloo children on ``cuda:0``) at ``SMOKE_PAR_TEXT_SIZE``: a row for each,
+   ``virtual`` true.  (6) ``tools/torch_wide_bench.py`` as a subprocess at
+   ``SMOKE_TEXT_SIZE``: parity ok, both engines' rates, and the segmented
+   rank mode launched in its wide-stream calls.
+13. opt-in, with ``SMOKE_WIDE_TEXT_SIZE`` (> 2^32, e.g. 4.3e9): a u64 blob
    over that many bp (seed 42, built and cached under ``bench_cache/``) is
    uploaded without ``force_wide`` and put through phase 5's checks with
    half the patterns starting above 2^32; some located positions must be
    >= 2^32.  Off by default: the host build takes long and needs ~19
    bytes of host memory per bp, more than a 96 GiB host has at 4.3e9.
 
-No earlier phase was cut in depth to make room for later ones.
+No earlier phase was cut in depth to make room for later ones: phase 12
+takes 70-140 s and the whole 300-450 s on an NVIDIA H100 80GB HBM3 (700 W),
+by how fast the host is.
 
 The last lines are the kernel summary (JSON: per kernel its launches on the
 main path, its time, the plain version's, and ``bound_ms``, the least time
@@ -109,10 +140,15 @@ the card could take for the same inputs, see :func:`join_bound`), the
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -124,6 +160,11 @@ PAR_TEXT_SIZE = int(float(os.environ.get("SMOKE_PAR_TEXT_SIZE", "1e7")))
 PAR_BATCH = 100_000
 PAR_CHILD_DEADLINE = 420  # seconds for the two-rank run, start to exit
 PAR_GROUP_TIMEOUT = 120  # seconds, every collective of every group
+SURFACE_DEADLINE = 300  # seconds for one bench surface run as a subprocess
+MICRO_BATCHES = "1000,4000,16000,65536,262144,1000000"
+CLI_TEXT, CLI_PATTERNS, CLI_COLD = 1_000_000, 1000, 0.1
+# queries/s per window of every run_batch, by (tag, B): {"count": [...], "locate": [...]}
+RATES: dict = {}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 ALU_OPS_PER_S = 67e12  # its non-tensor-core rate (float32; the table has no int32 row)
 SEED = 42
@@ -177,8 +218,6 @@ def device_phase(torch) -> str:
 def ptxas_report(out: str) -> list[str]:
     """One entry per compiled kernel from ``ptxas -v``: its template
     arguments, registers and spill bytes."""
-    import re
-
     report, name, spill = [], "?", ""
     for ln in out.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -301,12 +340,14 @@ def get_blob(ft, text: np.ndarray, position: str = "u32", alphabet: str = "dna")
     return ft.FmIndex.load(mm, position=position, block=block, encoder_kind="table")
 
 
-def measure(fn, B: int, reps: int, windows: int = 5):
-    """Queries/s per window, from CUDA events around ``reps`` back-to-back
-    calls (after one warm call)."""
+def measure(fn, B: int, reps: int, windows: int = 5, clock: str = "events"):
+    """Queries/s per window of ``reps`` back-to-back calls after one warm
+    call (``bench.timing.window_rates``, the bench surfaces' idiom), read
+    from CUDA events or, with ``clock="host"``, on the synchronised host
+    clock: collectives staged through the host are not on the device's."""
     from sview_fmindex_tpu_torch.bench import timing
 
-    return [B / timing.timeit(fn, reps=reps)[1] for _ in range(windows)]
+    return timing.window_rates(fn, B, reps, windows, device=DEVICE)[clock]
 
 
 def location_sets(locs, pids, valid, n: int) -> np.ndarray:
@@ -399,6 +440,7 @@ def run_batch(torch, fm, dev, text, tag: str, pats_np, engine: str, lens=None):
         f"count {max(cq) / 1e6:.3f} Mq/s (worst window {min(cq) / 1e6:.3f}), "
         f"locate {max(lq) / 1e6:.3f} Mq/s (worst window {min(lq) / 1e6:.3f}); "
         f"{int(counts.sum())} hits, capacity {capacity}")
+    RATES[tag, B] = dict(count=cq, locate=lq)
     locs, pids, valid = out[:3]
     return counts.cpu().numpy(), location_sets(locs, pids, valid, fm.text_len), out, answered_at
 
@@ -452,7 +494,8 @@ def main_path(torch, ft) -> dict:
         f"first query {first_query_s:.1f} s after start")
     check(launches.get("rank", 0) > 0, "rank-mode join kernel never launched")
     check(launches.get("decode", 0) > 0, "decode-mode join kernel never launched")
-    return dict(fm=fm, text=text, dev=dev, by_sigma=by_sigma, batches=batches)
+    return dict(fm=fm, text=text, dev=dev, by_sigma=by_sigma, batches=batches,
+                dense_k=dev.meta.dense_k)
 
 
 def time_join(torch, join_fn, plain_fn, args) -> dict:
@@ -566,7 +609,10 @@ def kernel_cases(torch, dev, rng, cases, launches: dict, seg_base=None) -> list[
 
 def kernel_phase(torch, dev, by_sigma: dict) -> list[dict]:
     rng = np.random.default_rng(SEED + 2)
-    cases = [("join_rank", dev.pair_tbl, 16, False), ("join_decode", dev.stream_tbl, 4, True)]
+    # join_rank_sigma4: the rank mode on the sigma=4 stream table, the launch
+    # of the micro suite's ``rank`` group; its count is filled in from that run
+    cases = [("join_rank", dev.pair_tbl, 16, False), ("join_decode", dev.stream_tbl, 4, True),
+             ("join_rank_sigma4", dev.stream_tbl, 4, False)]
     return kernel_cases(torch, dev, rng, cases, by_sigma)
 
 
@@ -843,6 +889,253 @@ def wildcard_phase(torch, ft) -> list[dict]:
     return kernels
 
 
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_surface(tag: str, cmd: list, env: dict | None = None) -> str:
+    """Run one bench surface as a subprocess (its stderr passes through) and
+    return its stdout; a non-zero exit or a run past the deadline fails."""
+    env = dict(os.environ, BENCH_CACHE_DIR=CACHE_DIR,
+               PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""), **(env or {}))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, *cmd], env=env, cwd=REPO_DIR,
+                              stdout=subprocess.PIPE, text=True, timeout=SURFACE_DEADLINE)
+    except subprocess.TimeoutExpired:  # run() has killed the child
+        raise RuntimeError(f"{tag}: still running after {SURFACE_DEADLINE} s")
+    check(proc.returncode == 0, f"{tag}: exit code {proc.returncode}\n{proc.stdout[-2000:]}")
+    log(f"[{tag}] exit 0 in {time.perf_counter() - t0:.1f} s")
+    return proc.stdout
+
+
+def last_json(tag: str, out: str) -> dict:
+    lines = out.strip().splitlines()
+    check(lines, f"{tag}: no output")
+    try:
+        return json.loads(lines[-1])
+    except ValueError:
+        raise RuntimeError(f"{tag}: the last line is not JSON: {lines[-1][:300]}")
+
+
+def span(lo: float, hi: float) -> str:
+    return f"{lo / 1e6:.3f}-{hi / 1e6:.3f}"
+
+
+def bad_symbol_step(torch, ft) -> None:
+    """Step 0: an out-of-alphabet symbol on a PassThrough index raises on the
+    host, and the CUDA context goes on answering."""
+    rng = np.random.default_rng(SEED + 13)
+    sigma = 6
+    text = rng.integers(0, sigma, 2500, dtype=np.uint8).tobytes()
+    builder = ft.FmIndexBuilder(
+        len(text), sigma, ft.PassThrough(), position="u32", block=ft.BLOCK3_U64,
+        suffix_array_config=ft.SuffixArrayConfig.compressed(2),
+        lookup_table_config=ft.LookupTableConfig.kmer_size(2))
+    fm = ft.FmIndex.load(builder.build(text), position="u32", block=ft.BLOCK3_U64,
+                         encoder_kind="pass")
+    good = np.frombuffer(text[100:108], np.uint8)[None, :].copy()
+    for kw in (dict(dense_lut_entries=0), dict(dense_lut_entries=0, force_wide=True)):
+        dev = ft.to_device_torch(fm, **kw)
+        for bad in ([6, 1], [255], [1, 200, 3], [7, 0, 1, 2, 3]):
+            for batch in (np.array([bad], np.uint8), torch.tensor([bad], dtype=torch.uint8,
+                                                                  device=DEVICE)):
+                for us in (True, False):
+                    try:
+                        dev.count(batch, use_stream=us)
+                    except ValueError as exc:
+                        check(f"symbol {max(bad)}" in str(exc), f"the error names no symbol: {exc}")
+                    else:
+                        raise RuntimeError(f"pattern {bad} raised nothing on a sigma-6 index")
+        counts = dev.count(good, use_stream=True)
+        torch.cuda.synchronize()
+        check(int(counts[0]) == fm.count(good[0].tobytes()) >= 1,
+              "the query after the refused batch is wrong")
+    log("[surfaces] out-of-alphabet symbols on a sigma-6 PassThrough index (narrow and wide, "
+        "both engines, host and device batches): ValueError each time, and the next query "
+        "on the same CUDA context answers")
+
+
+def bench_torch_step() -> dict:
+    out = run_surface("bench_torch", ["bench_torch.py"], dict(BENCH_TEXT_SIZE=str(TEXT_SIZE)))
+    res = last_json("bench_torch", out)
+    keys = {"metric", "value", "value_worst", "unit", "vs_baseline", "count_qps",
+            "count_qps_worst", "headline_batch", "text_size", "batches", "build_s",
+            "upload_s", "upload_phases", "first_query_s", "launches", "device"}
+    check(keys <= set(res), f"bench_torch: keys missing: {sorted(keys - set(res))}")
+    check(res["value"] > 0 and res["text_size"] == TEXT_SIZE, "bench_torch: value or text size")
+    check(set(res["batches"]) == {str(b) for b in BATCHES}, "bench_torch: a batch is missing")
+    check(res["device"]["platform"] == "gpu" and res["device"]["smi"], "bench_torch: no card named")
+    log(f"[bench_torch] {res['device']['smi']}; upload {res['upload_s']} s "
+        f"{res['upload_phases']}; first query {res['first_query_s']} s after its start")
+    launches = res["launches"]
+    log(f"[bench_torch] join launches of its own run, by mode@sigma: {launches}")
+    check(launches["upload"].get("decode@4", 0) > 0, "bench_torch: the SA fill never launched "
+          "the decode mode")
+    for B in BATCHES:
+        for call in ("count", "locate"):
+            check(launches[str(B)][call].get("rank@16", 0) > 0,
+                  f"bench_torch: one {call} call at B={B} launched no rank mode at sigma 16")
+    for B in BATCHES:
+        r, main = res["batches"][str(B)], RATES["main", B]
+        for k in ("count_qps", "count_qps_worst", "locate_qps", "locate_qps_worst",
+                  "count_qps_events", "locate_qps_events", "hits", "capacity"):
+            check(r.get(k, 0) > 0, f"bench_torch: B={B} {k} = {r.get(k)}")
+        log(f"[bench_torch] B={B}: count {span(r['count_qps_worst'], r['count_qps'])} Mq/s on the "
+            f"host clock, {span(r['count_qps_events_worst'], r['count_qps_events'])} from CUDA "
+            f"events (phase 3, events: {span(min(main['count']), max(main['count']))}); locate "
+            f"{span(r['locate_qps_worst'], r['locate_qps'])} host, "
+            f"{span(r['locate_qps_events_worst'], r['locate_qps_events'])} events (phase 3: "
+            f"{span(min(main['locate']), max(main['locate']))}); worst-best of 5 windows")
+    return res
+
+
+def micro_step(torch, dense_k: int) -> dict:
+    from sview_fmindex_tpu_torch.bench import micro
+
+    groups = "rank,sort,search,locate,build"
+    rep = micro.main(["--text-size", str(TEXT_SIZE), "--cache-dir", CACHE_DIR,
+                      "--batches", MICRO_BATCHES, "--groups", groups,
+                      "--out", os.path.join(CACHE_DIR, "micro_smoke.json")])
+    torch.cuda.empty_cache()
+    n_b = len(MICRO_BATCHES.split(","))
+    by_group = collections.Counter(r["group"] for r in rep["rows"])
+    check(by_group["rank"] == 3 * n_b and by_group["sort"] == 2 * n_b
+          and by_group["search"] == 2 * n_b and by_group["locate"] == 5 * n_b
+          and by_group["build"] >= 2, f"micro: rows per group {dict(by_group)}")
+    check(all(np.isfinite(r["value"]) and r["value"] >= 0 for r in rep["rows"]),
+          "micro: a row's value is not finite")
+    check(rep["launches"]["rank"] > 0 and rep["launches"]["search"] > 0,
+          f"micro: the rank mode never launched: {rep['launches']}")
+    check(rep["dense_k"] == dense_k,
+          f"micro: dense_k {rep['dense_k']} is not the main path's {dense_k}")
+    log(f"[micro] {len(rep['rows'])} rows, dense_k={rep['dense_k']}; join launches per group "
+        f"{rep['launches']}; search rows, gather against stream:")
+    for line in micro.crossover_table(rep["rows"]):
+        log(f"[micro] {line}")
+    for r in rep["rows"]:
+        if r["group"] in ("rank", "sort") or r["name"].startswith("upload["):
+            log(f"[micro] {r['group']} {r['name']} B={r['B']}: {r['value']} {r['unit']}")
+    return rep
+
+
+def cli_step() -> None:
+    from sview_fmindex_tpu_torch.bench import cli
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    data = tempfile.mkdtemp(prefix="sview_cli_")
+
+    def run(*argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main([*argv])
+        return buf.getvalue()
+
+    try:
+        run("generate-text", "-d", data, "-t", str(CLI_TEXT), "-s", str(SEED))
+        run("generate-pattern", "-d", data, "-n", str(CLI_PATTERNS), "-c", str(CLI_COLD),
+            "-s", str(SEED + 1))
+        run("build", "-d", data, "-a", "memory")
+        results = os.path.join(data, "sview-memory-block3-results.txt")
+        outs = {}
+        for algo, extra in (("memory", ()), ("device", ("--serve", "8"))):
+            before = collections.Counter(sj.LAUNCHES_BY_SIGMA)
+            out = run("locate", "-d", data, "-a", algo, *extra)
+            for want in (r"Blob loading time: \d+ ns", r"Locate time: \d+ ns",
+                         r"Total time: \d+ ns", r"Index Load \(%\): \d+"):
+                check(re.search(f"^{want}$", out, re.M), f"cli locate -a {algo}: no '{want}' line")
+            with open(results, "rb") as f:
+                outs[algo] = f.read()
+            launched = dict(collections.Counter(sj.LAUNCHES_BY_SIGMA) - before)
+            log(f"[cli] locate -a {algo}: " + "; ".join(
+                ln for ln in out.splitlines() if ln.startswith(("Serve", "Total", "Index")))
+                + f"; join launches {launched}")
+        check(outs["memory"] == outs["device"] and outs["memory"].count(b"\n") == CLI_PATTERNS,
+              "cli: the memory and device result files differ")
+        log(f"[cli] {CLI_TEXT} bp, {CLI_PATTERNS} patterns, cold {CLI_COLD}: result files of "
+            f"memory and device byte-identical ({len(outs['memory'])} bytes)")
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+
+
+def sweep_step() -> None:
+    csv = os.path.join(CACHE_DIR, f"sweep_smoke_{os.getpid()}.csv")
+    cells = os.path.join(CACHE_DIR, f"sweep_smoke_{os.getpid()}.json")
+    try:
+        run_surface("sweep", ["run_benchmark_torch.py", "--algorithms", "mmap,device",
+                              "--patterns", "1000", "--colds", "0.1", "--text-size",
+                              str(TEXT_SIZE), "--out", csv, "--phases-out", cells])
+        with open(csv) as f:
+            lines = f.read().strip().splitlines()
+        check(lines[0] == "pattern_count,cold_ratio,algorithm,total_ns,load_percent,max_rss_kb"
+              and [ln.split(",")[2] for ln in lines[1:]] == ["mmap", "device"],
+              f"sweep: CSV {lines}")
+        with open(cells) as f:
+            for cell in json.load(f):
+                ph = {k[:-3]: round(v / 1e9, 3) for k, v in cell["phases"].items()}
+                log(f"[sweep] {cell['algorithm']}: total {cell['total_ns'] / 1e9:.3f} s, load "
+                    f"{100 * cell['load_ns'] // cell['total_ns']}%, query "
+                    f"{cell['query_ns'] / 1e9:.4f} s, rss {cell['max_rss_kb'] // 1024} MB "
+                    f"(from {cell['max_rss_source']}); phases "
+                    f"(s) {ph}; join launches {cell.get('launches')}")
+                if cell["algorithm"] == "device":
+                    check({"cuda_init_ns", "kernel_load_ns", "upload_ns", "warm_ns"}
+                          <= set(cell["phases"]), "sweep: a device phase is missing")
+                    check(cell["launches"].get("rank", 0) > 0, "sweep: the device cell never "
+                          "launched the rank mode")
+    finally:
+        for path in (csv, cells):
+            if os.path.exists(path):
+                os.remove(path)
+
+
+def scaling_step() -> None:
+    from sview_fmindex_tpu_torch.bench import scaling
+
+    rep = scaling.run_scaling(PAR_TEXT_SIZE, PAR_BATCH, mesh_sizes=[1, 2])
+    check(rep["metric"] == "pattern_dp_count_scaling" and rep["platform"] == "gpu"
+          and [r["devices"] for r in rep["rows"]] == [1, 2] and rep["virtual"] is True
+          and all(r["count_qps"] > 0 for r in rep["rows"]), f"scaling: {rep}")
+    log(f"[scaling] {json.dumps(rep)}")
+
+
+def wide_bench_step() -> None:
+    out = run_surface("wide_bench", ["tools/torch_wide_bench.py"],
+                      dict(BENCH_TEXT_SIZE=str(TEXT_SIZE)))
+    res = last_json("wide_bench", out)
+    check(res.get("parity", "").startswith("ok") and res["text_size"] == TEXT_SIZE,
+          f"wide_bench: {res.get('parity')}")
+    launches = res["launches"]
+    log(f"[wide_bench] join launches of its own run, by mode@sigma: {launches}")
+    for call in ("count", "locate"):
+        check(launches[f"wide-stream {call}"].get("rank_seg@4", 0) > 0,
+              f"wide_bench: one wide-stream {call} call launched no segmented rank mode")
+    for engine in ("wide-stream", "wide-gather"):
+        r = res[engine]
+        check(r["count_qps"] > 0 and r["locate_qps"] > 0, f"wide_bench: {engine} rates")
+        log(f"[wide_bench] {engine} B={res['batch']}: count "
+            f"{span(r['count_qps_worst'], r['count_qps'])} Mq/s, locate "
+            f"{span(r['locate_qps_worst'], r['locate_qps'])} Mq/s (host clock, worst-best of 3 "
+            f"windows); upload {res['upload_s']} s")
+
+
+def bench_surfaces_phase(torch, ft, dense_k: int) -> int:
+    """Phase 12: every entry point that measures, driven once on the card.
+    ``dense_k``: the main path's seed depth, which the micro suite's index
+    must share.  Returns the rank-mode launches of the micro suite's ``rank``
+    group (the ``join_rank_sigma4`` kernel case's path)."""
+    t0 = time.perf_counter()
+    bad_symbol_step(torch, ft)
+    bench_torch_step()
+    rank_launches = micro_step(torch, dense_k)["launches"]["rank"]
+    cli_step()
+    torch.cuda.empty_cache()
+    sweep_step()
+    scaling_step()
+    wide_bench_step()
+    log(f"[surfaces] all bench surfaces done in {time.perf_counter() - t0:.1f} s")
+    return rank_launches
+
+
 def fresh_store(tag: str) -> str:
     """A path for a ``file://`` rendezvous store that no earlier run left."""
     path = os.path.join(CACHE_DIR, f"store_{tag}_{os.getpid()}")
@@ -850,22 +1143,6 @@ def fresh_store(tag: str) -> str:
     if os.path.exists(path):
         os.remove(path)
     return path
-
-
-def host_rate(torch, fn, B: int, reps: int, windows: int = 3) -> list:
-    """Queries/s per window on the host clock around ``reps`` synchronised
-    calls (after one warm call): collectives staged through the host are
-    not on the device's clock."""
-    fn()
-    out = []
-    for _ in range(windows):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        out.append(B * reps / (time.perf_counter() - t0))
-    return out
 
 
 def check_sharded(torch, tag: str, obj, pats_np, want: dict, n: int, rate, reps: int,
@@ -1017,7 +1294,7 @@ def rank_main(rank: int, world: int, store: str) -> None:
                                sets=location_sets(locs, pids, valid, fm.text_len))}
 
     def rate(fn, B, reps):
-        return host_rate(torch, fn, B, reps)
+        return measure(fn, B, reps, windows=3, clock="host")
 
     uq = rate(lambda: dev.count(patterns, use_stream=True), PAR_BATCH, 8)
     log(f"[{tag}] unsharded on this rank while its peers run too: count "
@@ -1127,10 +1404,13 @@ def main() -> None:
     kernels += segmented_kernel_phase(torch, wide_launches)
     kernels += hbm_kernel_phase(torch, main_res["by_sigma"])
     ragged_phase(torch)
+    dense_k = main_res["dense_k"]
     del main_res, fm, text
     kernels += protein_phase(torch, ft)
     kernels += wildcard_phase(torch, ft)
     torch.cuda.empty_cache()
+    rank4 = next(k for k in kernels if k["name"] == "join_rank_sigma4")
+    rank4["launches"] = bench_surfaces_phase(torch, ft, dense_k)
     two_rank_phase(ft)
     if WIDE_TEXT_SIZE:
         wide_text_phase(torch, ft)

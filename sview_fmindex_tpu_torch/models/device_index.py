@@ -169,6 +169,9 @@ class DeviceFmIndex:
     seg_base: torch.Tensor | None = None
     # seconds per upload phase (device work synchronised at each phase end)
     upload_phases: dict = dataclasses.field(default_factory=dict)
+    # PassThrough index: pattern bytes ARE symbols, so every query batch is
+    # checked against sigma on the host (:func:`check_symbols`)
+    passthrough: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -372,7 +375,8 @@ class DeviceFmIndex:
                    dense_hi=dhi_dev, count_arr=count_dev, sa=sa_dev,
                    sentinel=sentinel, enc_table=enc_dev, stream_tbl=stream_dev,
                    pair_tbl=pair_tbl, pair_c2=pair_c2, pair_fix=pair_fix,
-                   meta=meta, upload_phases=phase.phases)
+                   meta=meta, upload_phases=phase.phases,
+                   passthrough=is_passthrough(fm))
 
     @classmethod
     def _from_host_wide(cls, fm, device: torch.device, stream: bool,
@@ -419,7 +423,8 @@ class DeviceFmIndex:
                    dense_hi=dhi_dev, count_arr=count_dev, sa=sa_dev,
                    sentinel=int(fm.sentinel_index), enc_table=enc_dev,
                    stream_tbl=stream_dev, pair_tbl=None, pair_c2=None, pair_fix=None,
-                   meta=meta, seg_base=seg_base, upload_phases=phase.phases)
+                   meta=meta, seg_base=seg_base, upload_phases=phase.phases,
+                   passthrough=is_passthrough(fm))
 
     @classmethod
     def from_reference(cls, arrays: dict, meta, device=None) -> "DeviceFmIndex":
@@ -481,7 +486,9 @@ class DeviceFmIndex:
             pair_tbl=table("pair_tbl", sigma * sigma) if pair else None,
             pair_c2=_i64(arrays["pair_c2"], device) if pair else None,
             pair_fix=_i64(arrays["pair_fix"], device) if pair else None,
-            meta=port_meta, seg_base=seg_base)
+            meta=port_meta, seg_base=seg_base,
+            passthrough=np.array_equal(np.asarray(arrays["enc_table"]).reshape(-1),
+                                       np.arange(256)))
 
     # ------------------------------------------------------------------
     # Crossovers measured for the JAX package on a TPU v5e (gather vs
@@ -525,7 +532,7 @@ class DeviceFmIndex:
         """(lo, hi, stream): the ranges and whether the stream engine
         served them."""
         patterns, lens, steps, (all_dense, fixed_len) = _as_batch(
-            self.meta, patterns, lens, self.device)
+            self.meta, patterns, lens, self.device, self.passthrough)
         sym = search_ops.encode_patterns(self.enc_table, patterns)
         stream = self._stream(patterns.shape[0], use_stream)
         if self.meta.wide_pos:
@@ -586,15 +593,42 @@ class DeviceFmIndex:
                                       self.stream_tbl, stream)
 
 
+def is_passthrough(fm) -> bool:
+    """Whether ``fm`` takes pattern bytes as symbols.  Decided by what the
+    encoder offers (a ``table``), not by its class: an ``FmIndex`` of the
+    JAX package, whose classes are not this package's, uploads the same
+    way."""
+    return getattr(fm.encoder, "table", None) is None
+
+
 def _enc_table(fm) -> np.ndarray:
-    """256-entry byte -> symbol table (the identity for PassThrough).
-    Decided by what the encoder offers (a ``table``), not by its class: an
-    ``FmIndex`` of the JAX package, whose classes are not this package's,
-    uploads the same way."""
-    table = getattr(fm.encoder, "table", None)
-    if table is not None:
-        return np.asarray(table).astype(np.int64)
-    return np.arange(256, dtype=np.int64)
+    """256-entry byte -> symbol table (the identity for PassThrough)."""
+    if is_passthrough(fm):
+        return np.arange(256, dtype=np.int64)
+    return np.asarray(fm.encoder.table).astype(np.int64)
+
+
+def check_symbols(patterns, sigma: int) -> None:
+    """Raise ``ValueError`` if a byte of the [B, L] batch (padding included:
+    finished lanes still gather by it) is not a symbol of a PassThrough index,
+    naming the first such symbol and its pattern.  An ``EncodingTable`` maps
+    every byte, so only PassThrough indexes call this; it runs before anything
+    of the batch is gathered by, on the CPU and on the card alike (there an
+    out-of-range gather would be a device-side assert that ends the
+    process's CUDA context)."""
+    if isinstance(patterns, torch.Tensor):
+        if patterns.numel() == 0 or int(patterns.max()) < sigma:
+            return
+        patterns = patterns.cpu().numpy()
+    else:
+        patterns = np.asarray(patterns)
+        if patterns.size == 0 or int(patterns.max()) < sigma:
+            return
+    patterns = patterns.reshape(-1, patterns.shape[-1])
+    p, j = (int(x[0]) for x in np.nonzero(patterns >= sigma))
+    raise ValueError(
+        f"symbol {int(patterns[p, j])} at position {j} of pattern {p} is outside the "
+        f"index's alphabet (a PassThrough index takes pattern bytes as symbols 0..{sigma - 1})")
 
 
 def to_device_torch(fm, device=None, **kwargs) -> DeviceFmIndex:
@@ -604,14 +638,21 @@ def to_device_torch(fm, device=None, **kwargs) -> DeviceFmIndex:
     return DeviceFmIndex.from_host(fm, device=device, **kwargs)
 
 
-def _as_batch(meta, patterns, lens, device):
+def _as_batch(meta, patterns, lens, device, passthrough: bool = False):
     """Normalise the batch to a uint8 [B, L] device tensor and derive host
     facts: LF steps, and ``(all_dense, fixed_len)`` — every lane long enough
-    for the dense seed, and one shared length."""
+    for the dense seed, and one shared length.  ``passthrough``: the bytes
+    are symbols and are checked against sigma first."""
     if isinstance(patterns, torch.Tensor):
-        patterns = patterns.to(device=device, dtype=torch.uint8)
+        patterns = patterns.to(dtype=torch.uint8)
     else:
-        patterns = torch.as_tensor(np.asarray(patterns, dtype=np.uint8), device=device)
+        patterns = np.asarray(patterns, dtype=np.uint8)
+    if passthrough:
+        check_symbols(patterns, meta.sigma)
+    if isinstance(patterns, torch.Tensor):
+        patterns = patterns.to(device)
+    else:
+        patterns = torch.as_tensor(patterns, device=device)
     if patterns.dim() == 1:
         patterns = patterns[None, :]
     if lens is None:

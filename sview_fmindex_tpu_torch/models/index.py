@@ -169,6 +169,11 @@ class FmIndex:
         mul = self.kmer_multiplier
         tbl = self.kmer_count_table
         plen = len(sym)
+        if plen == 0:
+            # the empty pattern: the device index answers 0 and no location;
+            # without this the negative indices below wrap to minus the
+            # text length
+            return 0, 0, 0
         if plen < k:
             start = 0
             for i in range(plen):
@@ -295,6 +300,8 @@ class FmIndex:
         while sliced < k:
             sym = next(it, None)
             if sym is None:
+                if sliced == 0:  # the empty pattern, as in _initial_range
+                    return 0, 0
                 start *= (self.symbol_count + 1) ** (k - sliced)
                 gap = int(mul[sliced - 1]) - 1
                 return int(tbl[start - 1]), int(tbl[start + gap])

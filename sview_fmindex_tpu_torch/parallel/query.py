@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.device_index import DeviceFmIndex
+from ..models.device_index import DeviceFmIndex, check_symbols
 from ..ops import locate as locate_ops
 from ..ops import search as search_ops
 from ..ops import wide as wide_ops
@@ -27,15 +27,20 @@ from . import distributed
 from .mesh import DP_AXIS, make_mesh
 
 
-def pad_batch(patterns, lens, n: int):
+def pad_batch(patterns, lens, n: int, passthrough_sigma: int | None = None):
     """The batch padded to a multiple of ``n`` lanes: (patterns uint8 [B, L],
     a tensor if one was given, else numpy; lens int32 [B] on the host, where
     the batch facts are taken; the unpadded count b).  Padded lanes get
-    length 1 (a value the search can step) and are cut off by the callers."""
+    length 1 (a value the search can step) and are cut off by the callers.
+    ``passthrough_sigma``: the alphabet size of a PassThrough index, whose
+    batch is checked against it here, on every rank alike and before any
+    collective (``device_index.check_symbols``)."""
     if isinstance(patterns, torch.Tensor):
         patterns = patterns.to(torch.uint8)
     else:
         patterns = np.asarray(patterns, dtype=np.uint8)
+    if passthrough_sigma is not None:
+        check_symbols(patterns, passthrough_sigma)
     if patterns.ndim == 1:
         patterns = patterns[None]
     if lens is None:
@@ -93,7 +98,9 @@ class ShardedFmIndex:
 
     # ------------------------------------------------------------------
     def _pad(self, patterns, lens):
-        return pad_batch(patterns, lens, self.n_devices)
+        idx = self.index
+        return pad_batch(patterns, lens, self.n_devices,
+                         idx.meta.sigma if idx.passthrough else None)
 
     def _facts(self, lens) -> tuple:
         """Host-side batch facts (see device_index._as_batch), over the

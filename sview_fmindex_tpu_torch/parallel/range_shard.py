@@ -160,6 +160,7 @@ class RangeShardedFmIndex:
             up = DI._i64 if wide else DI._i32
             self.dense_lo, self.dense_hi = up(d_lo, device), up(d_hi, device)
         self.enc_table = DI._i64(DI._enc_table(fm), device)
+        self.passthrough = DI.is_passthrough(fm)
 
     @property
     def n_devices(self) -> int:
@@ -194,7 +195,8 @@ class RangeShardedFmIndex:
 
     def _ranges(self, patterns, lens):
         """(lo, hi) of this rank's rows of the padded batch, and b."""
-        patterns, lens, b = pad_batch(patterns, lens, self.dp_size)
+        patterns, lens, b = pad_batch(patterns, lens, self.dp_size,
+                                      self.meta.sigma if self.passthrough else None)
         meta = self.meta
         # the trip count of the whole batch: every rank steps alike
         steps = search_ops.max_steps_needed(meta, lens, patterns.shape[1])

@@ -214,6 +214,27 @@ def test_port_index_random_text_matches_oracle():
         assert sorted(int(x) for x in fm.locate(pat)) == expected
 
 
+def test_empty_pattern_is_the_one_input_the_host_classes_differ_on():
+    """The two host classes give equal answers on every input but the empty
+    pattern: the JAX package's class returns minus the text length (a
+    negative index wraps; recorded as a fault of the reference, left alone),
+    the port's returns 0, as both device classes do."""
+    case = CASES[1]
+    with open(os.path.join(CORPUS, case["blob"]), "rb") as f:
+        blob = f.read()
+    tfm, jfm = _load(ft, blob, case), _load(fmx, blob, case)
+    assert jfm.count(b"") == -jfm.text_len
+    assert tfm.count(b"") == 0
+    assert tfm.locate(b"") == [] == jfm.locate(b"")
+    rng = np.random.default_rng(8)
+    text = base64.b64decode(case["text"])
+    for _ in range(30):  # every other input: equal
+        n = int(rng.integers(1, 9))
+        s = int(rng.integers(0, len(text) - n))
+        pat = text[s:s + n]
+        assert tfm.count(pat) == jfm.count(pat) and tfm.locate(pat) == jfm.locate(pat)
+
+
 def test_load_errors_are_the_ports_own():
     blob = np.fromfile(os.path.join(CORPUS, CASES[0]["blob"]), np.uint8)
     with pytest.raises(ft.LoadError):
@@ -277,19 +298,30 @@ for dev in (fm.to_device("cpu", sa_full="device"), ft.to_device_torch(fm, "cpu")
         for i, p in enumerate(pats):
             assert sorted(locs[valid & (pids == i)].tolist()) == sorted(int(x) for x in fm.locate(p))
 from sview_fmindex_tpu_torch.parallel import distributed, mesh, query, range_shard  # noqa: F401
+# the bench surfaces: the package's modules, then the scripts beside it
+import importlib.util, os
+from sview_fmindex_tpu_torch.bench import cli, micro, scaling, timing  # noqa: F401
+import sview_fmindex_tpu_torch.bench.join_cases, sview_fmindex_tpu_torch.bench.sharded_overhead  # noqa: F401
+repo = os.environ["SVIEW_REPO"]
+for rel in ("bench_torch.py", "run_benchmark_torch.py", os.path.join("tools", "torch_wide_bench.py")):
+    spec = importlib.util.spec_from_file_location(rel[:-3].replace(os.sep, "_"), os.path.join(repo, rel))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-       or m == "sview_fmindex_tpu" or m.startswith("sview_fmindex_tpu.")]
+       or m == "sview_fmindex_tpu" or m.startswith("sview_fmindex_tpu.") or m == "bench"]
 assert not bad, bad
+assert "bench_torch" in sys.modules  # the two scripts share the headline bench's inputs
 print("STANDALONE_OK")
 """
 
 
 def test_port_stands_alone_in_a_fresh_process(tmp_path):
-    """Import, build, upload to the CPU, query: neither ``jax`` nor
-    ``sview_fmindex_tpu`` is loaded at the end."""
+    """Import, build, upload to the CPU, query, then import every bench
+    surface (the package's and the scripts at the root and under ``tools/``):
+    neither ``jax`` nor ``sview_fmindex_tpu`` nor ``bench`` is loaded at the
+    end."""
     script = tmp_path / "standalone.py"
     script.write_text(_STANDALONE)
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", SVIEW_REPO=REPO)
     proc = subprocess.run([sys.executable, str(script)], env=env, cwd=str(tmp_path),
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -301,8 +333,10 @@ def test_port_sources_import_nothing_of_jax():
     package in an import statement."""
     import re
 
-    pat = re.compile(r"^\s*(from|import)\s+(sview_fmindex_tpu(\.|\s|$)|jax(\.|\s|$))")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    pat = re.compile(r"^\s*(from|import)\s+(sview_fmindex_tpu(\.|\s|$)|jax(\.|\s|$)|bench(\.|\s|$))")
+    files = [os.path.join(REPO, rel) for rel in (
+        "chip_smoke.py", "bench_torch.py", "run_benchmark_torch.py",
+        os.path.join("tools", "torch_wide_bench.py"))]
     for root, _, names in os.walk(os.path.join(REPO, "sview_fmindex_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

@@ -16,6 +16,10 @@ A job::
                 "init": {constructor keywords},
                 "calls": [(method, args tuple, kwargs dict), ...]}]}
 
+A call with a fourth element, ``(method, args, kwargs, "raises")``, is
+expected to raise ``ValueError`` on every rank; its result is ``("raised",
+message)``.
+
 Each rank returns ``{case name: {"calls": [numpy results...], "info": {...}}}``.
 """
 from __future__ import annotations
@@ -138,8 +142,15 @@ def main(workdir: str, world: int, rank: int) -> None:
                         has_sa_full=obj.meta.has_sa_full, dp_size=obj.dp_size,
                         sa_dtype=str(obj.sa.dtype))
         calls = []
-        for method, args, kwargs in case["calls"]:
-            calls.append(_to_numpy(getattr(obj, method)(*args, **kwargs)))
+        for method, args, kwargs, *expect in case["calls"]:
+            try:
+                calls.append(_to_numpy(getattr(obj, method)(*args, **kwargs)))
+            except ValueError as exc:
+                if expect != ["raises"]:
+                    raise
+                calls.append(("raised", str(exc)))
+            else:
+                assert not expect, f"{method} was expected to raise"
         results[case["name"]] = {"calls": calls, "info": info}
     assert "jax" not in sys.modules and "sview_fmindex_tpu" not in sys.modules
     assert not any(stream_join.LAUNCHES.values())  # the CPU runs the plain version
