@@ -55,7 +55,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -169,26 +168,6 @@ def rate_keys(name: str, w: dict) -> dict:
             f"{name}_qps_events_worst": min(ev) if ev else None}
 
 
-def device_info(device) -> dict:
-    """The device's name, and for a card the ``nvidia-smi`` line with its
-    power limit.  The card is asked for by its UUID: ``nvidia-smi`` numbers
-    every card of the host, torch only those ``CUDA_VISIBLE_DEVICES`` lets
-    through, so an index would name another card."""
-    import torch
-
-    if device.type != "cuda":
-        return {"platform": "cpu", "name": "cpu", "smi": None}
-    try:
-        uuid = torch.cuda.get_device_properties(device).uuid
-        smi = subprocess.run(
-            ["nvidia-smi", "-i", f"GPU-{uuid}", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    except (AttributeError, OSError, subprocess.CalledProcessError, IndexError):
-        smi = None
-    return {"platform": "gpu", "name": torch.cuda.get_device_name(device), "smi": smi}
-
-
 def launches_since(before) -> dict:
     """The join-kernel launches since ``before`` (a copy of
     ``ops.stream_join.LAUNCHES_BY_SIGMA``), as ``{"mode@sigma": n}``."""
@@ -209,7 +188,7 @@ def launch_mark():
 def run(device=None) -> dict:
     import torch
 
-    from sview_fmindex_tpu_torch.bench.timing import force, window_rates
+    from sview_fmindex_tpu_torch.bench.timing import device_info, force, window_rates
     from sview_fmindex_tpu_torch.models.device_index import resolve_device
     from sview_fmindex_tpu_torch.ops.locate import expand_capacity
 

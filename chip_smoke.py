@@ -118,15 +118,30 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    exit 0, two CSV rows, the device cell's phases and launches printed.  (5)
    ``bench.scaling.run_scaling`` with one rank (NCCL, in this process) and two
    (gloo children on ``cuda:0``) at ``SMOKE_PAR_TEXT_SIZE``: a row for each,
-   ``virtual`` true.  (6) ``tools/torch_wide_bench.py`` as a subprocess at
-   ``SMOKE_TEXT_SIZE``: parity ok, both engines' rates, and the segmented
-   rank mode launched in its wide-stream calls.
-13. opt-in, with ``SMOKE_WIDE_TEXT_SIZE`` (> 2^32, e.g. 4.3e9): a u64 blob
-   over that many bp (seed 42, built and cached under ``bench_cache/``) is
-   uploaded without ``force_wide`` and put through phase 5's checks with
-   half the patterns starting above 2^32; some located positions must be
-   >= 2^32.  Off by default: the host build takes long and needs ~19
-   bytes of host memory per bp, more than a 96 GiB host has at 4.3e9.
+   ``virtual`` true.  (6) ``tools/torch_scaling_report.py`` as a subprocess
+   at ``SMOKE_PAR_TEXT_SIZE`` over 1 and 2 ranks: weak-scaling rows (25,000
+   patterns a rank), the one-rank sharded overhead, and the communication
+   model beside its measured two-process gloo floor.  (7)
+   ``tools/torch_wide_bench.py`` as a subprocess at ``SMOKE_TEXT_SIZE``:
+   parity ok, both engines' rates, and the segmented rank mode launched in
+   its wide-stream calls.
+13. opt-in, with ``SMOKE_WIDE_TEXT_SIZE`` (> 2^32; 4.5e9 is the size of the
+   JAX package's record): a u64 blob over that many bp (seed 42, cached
+   under ``bench_cache/``), built by a child process of this script that
+   starts before phase 3 and runs beside the earlier phases; its peak RSS
+   (``os.wait4``) is printed in GiB and bytes per bp.  The build needs about
+   10 bytes of host memory per bp beside the text (the int64 SA, the padded
+   text and the BWT, the SA-IS type array on top while it runs), 45 GB at
+   4.5e9.  The blob is uploaded without ``force_wide`` and put through phase
+   5's checks with half the patterns starting above 2^32 (some located
+   positions must be >= 2^32); the segmented modes are held against their
+   plain version on its real table (``join_rank_seg_u64``,
+   ``join_decode_seg_u64``: sigma 4, 2M keys past 2^32, 3 segments).  The
+   card is freed and ``tools/torch_wide_scale_check.py`` serves the same
+   files range-sharded (one NCCL rank).  16 of that tool's patterns are
+   found by scanning the raw text (``mmap.find``), an oracle that does not
+   read the blob: the wide engine and the range-sharded answers must equal
+   it.
 
 No earlier phase was cut in depth to make room for later ones: phase 12
 takes 70-140 s and the whole 300-450 s on an NVIDIA H100 80GB HBM3 (700 W),
@@ -161,6 +176,7 @@ PAR_BATCH = 100_000
 PAR_CHILD_DEADLINE = 420  # seconds for the two-rank run, start to exit
 PAR_GROUP_TIMEOUT = 120  # seconds, every collective of every group
 SURFACE_DEADLINE = 300  # seconds for one bench surface run as a subprocess
+WIDE_SCALE_DEADLINE = 1800  # seconds for the scale check at 4.5e9: it stages 18 GB of SA
 MICRO_BATCHES = "1000,4000,16000,65536,262144,1000000"
 CLI_TEXT, CLI_PATTERNS, CLI_COLD = 1_000_000, 1000, 0.1
 # queries/s per window of every run_batch, by (tag, B): {"count": [...], "locate": [...]}
@@ -301,14 +317,19 @@ def get_protein_text(size: int) -> np.ndarray:
         AMINO, np.uint8)[np.random.default_rng(SEED).integers(0, 20, size=size)])
 
 
-def get_blob(ft, text: np.ndarray, position: str = "u32", alphabet: str = "dna"):
+def blob_path(size: int, position: str = "u32", alphabet: str = "dna") -> str:
     prefix, block_name, k, r = ALPHABETS[alphabet]
-    block = getattr(ft, block_name)
-    size = text.shape[0]
     tag = "" if position == "u32" else f"_{position}"
-    path = os.path.join(CACHE_DIR, f"{prefix}_{size}_{SEED}{tag}_"
+    return os.path.join(CACHE_DIR, f"{prefix}_{size}_{SEED}{tag}_"
                         f"{block_name.lower().replace('block', 'b').replace('_', '')}"
                         f"_r{r}_k{k}.blob")
+
+
+def get_blob(ft, text: np.ndarray, position: str = "u32", alphabet: str = "dna"):
+    _, block_name, k, r = ALPHABETS[alphabet]
+    block = getattr(ft, block_name)
+    size = text.shape[0]
+    path = blob_path(size, position, alphabet)
     if not os.path.exists(path):
         if alphabet == "prot":
             enc = ft.EncodingTable.from_symbols([bytes([c]) for c in AMINO])
@@ -321,8 +342,9 @@ def get_blob(ft, text: np.ndarray, position: str = "u32", alphabet: str = "dna")
             suffix_array_config=ft.SuffixArrayConfig.compressed(r),
             lookup_table_config=ft.LookupTableConfig.kmer_size(k),
             sa_backend="native")
-        # the host build peaks near 19 bytes per bp (int64 SA and its
-        # shifted copy; two int64 text copies in the k-mer pass)
+        # the host build peaks near 10 bytes per bp beside the text (the
+        # int64 SA, the padded text and the BWT; 6 with an int32 SA), with
+        # the native SA-IS's type array (1 byte per bp) on top while it runs
         avail = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
         log(f"[blob] building the {position} blob over {size} bp "
             f"({avail / 2**30:.1f} GiB of host memory free)")
@@ -617,12 +639,13 @@ def kernel_phase(torch, dev, by_sigma: dict) -> list[dict]:
 
 
 def wide_checks(torch, ft, fm, text, tag: str, batches: dict, dense_k: int = 10,
-                kernel_cases_of=None, **upload_kw) -> tuple[dict, list[dict]]:
+                kernel_cases_of=None, on_index=None, **upload_kw) -> tuple[dict, list[dict]]:
     """Upload ``fm`` as a wide index and put every batch through run_batch
     on the wide stream engine; where ``batches`` carries the narrow path's
     answers, the wide ones must equal them.  ``kernel_cases_of(dev)``: the
-    segmented kernel cases to run on the wide tables.  Returns the launch
-    counts per mode and those cases' kernel summary entries."""
+    segmented kernel cases to run on the wide tables; ``on_index(dev)``: a
+    last check of the index before it is freed.  Returns the launch counts
+    per mode and those cases' kernel summary entries."""
     from sview_fmindex_tpu_torch.ops import stream_join as sj
 
     sj.LAUNCHES.clear()
@@ -654,6 +677,8 @@ def wide_checks(torch, ft, fm, text, tag: str, batches: dict, dense_k: int = 10,
     kernels = [] if kernel_cases_of is None else kernel_cases(
         torch, dev, np.random.default_rng(SEED + 7), kernel_cases_of(dev), by_sigma,
         dev.seg_base)
+    if on_index is not None:
+        on_index(dev)
     del dev
     torch.cuda.empty_cache()
     return launches, kernels
@@ -892,17 +917,19 @@ def wildcard_phase(torch, ft) -> list[dict]:
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
-def run_surface(tag: str, cmd: list, env: dict | None = None) -> str:
+def run_surface(tag: str, cmd: list, env: dict | None = None,
+                deadline: int = SURFACE_DEADLINE) -> str:
     """Run one bench surface as a subprocess (its stderr passes through) and
-    return its stdout; a non-zero exit or a run past the deadline fails."""
+    return its stdout; a non-zero exit or a run past ``deadline`` seconds
+    fails."""
     env = dict(os.environ, BENCH_CACHE_DIR=CACHE_DIR,
                PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""), **(env or {}))
     t0 = time.perf_counter()
     try:
         proc = subprocess.run([sys.executable, *cmd], env=env, cwd=REPO_DIR,
-                              stdout=subprocess.PIPE, text=True, timeout=SURFACE_DEADLINE)
+                              stdout=subprocess.PIPE, text=True, timeout=deadline)
     except subprocess.TimeoutExpired:  # run() has killed the child
-        raise RuntimeError(f"{tag}: still running after {SURFACE_DEADLINE} s")
+        raise RuntimeError(f"{tag}: still running after {deadline} s")
     check(proc.returncode == 0, f"{tag}: exit code {proc.returncode}\n{proc.stdout[-2000:]}")
     log(f"[{tag}] exit 0 in {time.perf_counter() - t0:.1f} s")
     return proc.stdout
@@ -1098,6 +1125,38 @@ def scaling_step() -> None:
     log(f"[scaling] {json.dumps(rep)}")
 
 
+def scaling_report_step() -> None:
+    """``tools/torch_scaling_report.py`` at SMOKE_PAR_TEXT_SIZE over 1 and 2
+    ranks: weak-scaling rows, the one-rank overhead, the communication model
+    beside its measured two-process floor."""
+    path = os.path.join(CACHE_DIR, f"scaling_report_{os.getpid()}.json")
+    try:
+        rep = last_json("scaling_report", run_surface(
+            "scaling_report", ["tools/torch_scaling_report.py", "--text-size",
+                               str(PAR_TEXT_SIZE), "--ranks", "1,2", "--out", path]))
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    rows, m = rep["weak_scaling"], rep["comm_model"]
+    check(rep["platform"] == "gpu" and rep["virtual"] is True and rep["smi"]
+          and [r["devices"] for r in rows] == [1, 2]
+          and [r["batch"] for r in rows] == [rep["per_rank_batch"], 2 * rep["per_rank_batch"]]
+          and all(r["count_qps"] > 0 for r in rows), f"scaling_report: {rows}")
+    check(m["measured_compute_s_per_batch"] > 0 and m["rs_count_all_reduce_bytes"] > 0
+          and rep["measured_collective"]["gather_s"] > 0, f"scaling_report: {m}")
+    log(f"[scaling_report] {rep['smi']}; weak scaling, {rep['per_rank_batch']} patterns a "
+        f"rank: " + ", ".join(f"{r['devices']} rank(s) {r['count_qps'] / 1e6:.3f} Mq/s "
+                              f"(efficiency {r['efficiency']})" for r in rows)
+        + f"; one-rank sharded count {rep['shard_overhead_rank1']}")
+    log(f"[scaling_report] model at B={m['batch']}, 2 ranks: locate {m['measured_compute_s_per_batch'] * 1e3:.2f} ms "
+        f"a batch; dp locate gathers {m['dp_locate_gather_bytes']} B (NVLink "
+        f"{m['dp_locate_s_nvlink'] * 1e3:.4f} ms, PCIe {m['dp_locate_s_pcie_gen5'] * 1e3:.4f} ms, "
+        f"gloo measured {rep['measured_collective']['gather_s'] * 1e3:.2f} ms); rs count "
+        f"reduces {m['rs_count_all_reduce_bytes']} B over {m['rs_count_steps']} steps (NVLink "
+        f"{m['rs_count_s_nvlink'] * 1e3:.4f} ms; gloo one step "
+        f"{rep['measured_collective']['all_reduce_s'] * 1e3:.2f} ms)")
+
+
 def wide_bench_step() -> None:
     out = run_surface("wide_bench", ["tools/torch_wide_bench.py"],
                       dict(BENCH_TEXT_SIZE=str(TEXT_SIZE)))
@@ -1131,6 +1190,7 @@ def bench_surfaces_phase(torch, ft, dense_k: int) -> int:
     torch.cuda.empty_cache()
     sweep_step()
     scaling_step()
+    scaling_report_step()
     wide_bench_step()
     log(f"[surfaces] all bench surfaces done in {time.perf_counter() - t0:.1f} s")
     return rank_launches
@@ -1366,9 +1426,80 @@ def two_rank_phase(ft) -> None:
     log(f"[par2] both ranks done in {time.monotonic() - t0:.1f} s")
 
 
-def wide_text_phase(torch, ft) -> None:
-    """Opt-in: a u64 blob over WIDE_TEXT_SIZE bp, served without force_wide."""
+def build_wide_main() -> None:
+    """The child of phase 13 (``chip_smoke.py --build-wide``): the text and
+    its u64 blob over WIDE_TEXT_SIZE bp, cached under ``bench_cache/``.
+    Prints when each build pass starts and how long it took, and its own
+    peak RSS before the build (the package import) and after."""
+    import resource
+
+    import sview_fmindex_tpu_torch as ft
+    from sview_fmindex_tpu_torch.build import bwm, bwt, count_array
+
+    def timed(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            log(f"[wide_build] {name} starts at {time.time() - T_START:.0f} s")
+            out = fn(*args, **kwargs)
+            log(f"[wide_build] {name}: {time.perf_counter() - t0:.1f} s, peak RSS so far "
+                f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB")
+            return out
+        setattr(mod, name, wrapper)
+
+    for mod, name in ((count_array, "encode_text"), (count_array, "count_and_kmer_tables"),
+                      (bwt, "suffix_array"), (bwt, "bwt_and_sampled_sa"),
+                      (bwm, "write_bwm_body")):
+        timed(mod, name)
+    t0 = time.perf_counter()
+    text = get_text(WIDE_TEXT_SIZE)
+    log(f"[wide_build] text of {WIDE_TEXT_SIZE} bp ready in {time.perf_counter() - t0:.1f} s; "
+        f"peak RSS before the build {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
+        f" GiB")
+    get_blob(ft, text, position="u64")
+
+
+def start_wide_build():
+    """Phase 13's build, started before phase 3 so that it runs beside the
+    earlier phases: a child process of this script."""
     check(WIDE_TEXT_SIZE > 2**32 + 2**20, "SMOKE_WIDE_TEXT_SIZE must exceed 2^32")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--build-wide"],
+                            cwd=REPO_DIR)
+
+
+def wait_wide_build(proc) -> None:
+    """Wait for the build child; its peak RSS is its ``ru_maxrss`` from
+    ``os.wait4``: the ``getrusage(RUSAGE_CHILDREN)`` figure of that child
+    alone (other children of this script run beside it)."""
+    t0 = time.perf_counter()
+    _, status, ru = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    peak = ru.ru_maxrss * 1024
+    log(f"[wide_text] build child exited {proc.returncode} after {time.perf_counter() - t0:.1f} s "
+        f"of waiting; its peak RSS {peak / 2**30:.2f} GiB = {peak / WIDE_TEXT_SIZE:.2f} B/bp "
+        f"(the mapped text and blob pages it touched included)")
+    check(proc.returncode == 0, f"the u64 build child exited {proc.returncode}")
+
+
+def find_all(mm, pat: bytes) -> list[int]:
+    """Every position of ``pat`` in the mapped text, by scanning it."""
+    out, i = [], mm.find(pat)
+    while i >= 0:
+        out.append(i)
+        i = mm.find(pat, i + 1)
+    return out
+
+
+def wide_text_phase(torch, ft, build) -> list[dict]:
+    """Phase 13: the u64 blob over WIDE_TEXT_SIZE bp (built by ``build``, the
+    child process), served without force_wide by the wide engine and by
+    ``tools/torch_wide_scale_check.py``; 16 of the tool's patterns held
+    against a scan of the raw text by both."""
+    import importlib.util
+    import mmap
+
+    wait_wide_build(build)
     text = get_text(WIDE_TEXT_SIZE)
     t0 = time.perf_counter()
     fm = get_blob(ft, text, position="u64")
@@ -1383,13 +1514,90 @@ def wide_text_phase(torch, ft) -> None:
             rng.integers(2**32, WIDE_TEXT_SIZE - PATTERN_LEN, size=B - B // 2)])
         batches[B] = dict(pats=np.ascontiguousarray(
             text[starts[:, None] + np.arange(PATTERN_LEN)]))
-    wide_checks(torch, ft, fm, text, "wide_text", batches)
+
+    tool_path = os.path.join(REPO_DIR, "tools", "torch_wide_scale_check.py")
+    spec = importlib.util.spec_from_file_location("torch_wide_scale_check", tool_path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    n_pats = 256
+    starts, pats = tool.draw_patterns(text, n_pats, PATTERN_LEN, 123)
+    picked = [*range(8), *range(n_pats // 2, n_pats // 2 + 8)]  # 8 below 2^32, 8 above
+    t0 = time.perf_counter()
+    with open(text.filename, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+        scan = {i: find_all(mm, pats[i].tobytes()) for i in picked}
+    log(f"[wide_text] {len(picked)} of the scale check's patterns scanned for in the raw text "
+        f"in {time.perf_counter() - t0:.1f} s: {sum(map(len, scan.values()))} positions, "
+        f"{sum(p >= 2**32 for v in scan.values() for p in v)} at or above 2^32")
+
+    def against_scan(dev) -> None:
+        q = torch.from_numpy(pats[picked]).to(DEVICE)
+        counts = dev.count(q, use_stream=True).cpu().numpy()
+        locs, pids, valid, dropped = dev.locate(q, use_stream=True)
+        check(int(dropped[0]) == 0, "the scan patterns dropped hits")
+        got = {i: [] for i in picked}
+        for loc, p in zip(locs[valid].cpu().numpy(), pids[valid].cpu().numpy()):
+            got[picked[int(p)]].append(int(loc))
+        for j, i in enumerate(picked):
+            check(int(counts[j]) == len(scan[i]) and sorted(got[i]) == scan[i],
+                  f"wide engine: pattern {i} differs from the scan of the text")
+        log(f"[wide_text] the wide engine's counts and locations of the {len(picked)} "
+            f"patterns equal the scan")
+
+    sigma = fm.symbol_count
+    _, kernels = wide_checks(
+        torch, ft, fm, text, "wide_text", batches,
+        kernel_cases_of=lambda dev: [("join_rank_seg_u64", dev.stream_tbl, sigma, False),
+                                     ("join_decode_seg_u64", dev.stream_tbl, sigma, True)],
+        on_index=against_scan)
+    del fm
+    torch.cuda.empty_cache()
+
+    out = os.path.join(CACHE_DIR, f"wide_scale_{os.getpid()}.json")
+    try:
+        last_json("wide_scale", run_surface(
+            "wide_scale", ["tools/torch_wide_scale_check.py", "--text", text.filename,
+                           "--blob", blob_path(WIDE_TEXT_SIZE, "u64"), "--out", out],
+            deadline=WIDE_SCALE_DEADLINE))
+        with open(out) as f:
+            rep = json.load(f)
+    finally:
+        if os.path.exists(out):
+            os.remove(out)
+    ans = rep.pop("answers")
+    log(f"[wide_scale] {json.dumps(rep)}")
+    check(rep["ok"] and rep["mismatches"] == 0 and rep["locations_above_2_32"] > 0
+          and ans["starts"] == starts.tolist(), "the scale check failed")
+    for i in picked:
+        check(ans["counts"][i] == len(scan[i]) and ans["locations"][i] == scan[i],
+              f"range-sharded: pattern {i} differs from the scan of the text")
+    log(f"[wide_scale] the range-sharded counts and locations of the {len(picked)} scanned "
+        f"patterns equal the scan")
+    return kernels
 
 
 def main() -> None:
     import torch
 
     smi = device_phase(torch)
+    wide_build = start_wide_build() if WIDE_TEXT_SIZE else None
+    try:
+        kernels = smoke(torch, wide_build)
+    finally:
+        if wide_build is not None and wide_build.returncode is None:
+            wide_build.kill()
+            wide_build.wait()
+    check("jax" not in sys.modules, "the port imported JAX")
+    check("sview_fmindex_tpu" not in sys.modules, "the port imported the JAX package")
+    log(f"[done] {time.time() - T_START:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def smoke(torch, wide_build) -> list[dict]:
+    """Phases 2-13; returns the kernel summary."""
     import sview_fmindex_tpu_torch as ft
 
     build_phase()
@@ -1412,20 +1620,15 @@ def main() -> None:
     rank4 = next(k for k in kernels if k["name"] == "join_rank_sigma4")
     rank4["launches"] = bench_surfaces_phase(torch, ft, dense_k)
     two_rank_phase(ft)
-    if WIDE_TEXT_SIZE:
-        wide_text_phase(torch, ft)
-    check("jax" not in sys.modules, "the port imported JAX")
-    check("sview_fmindex_tpu" not in sys.modules, "the port imported the JAX package")
-    log(f"[done] {time.time() - T_START:.1f} s")
-    print(json.dumps({"kernels": kernels}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    if wide_build is not None:
+        kernels += wide_text_phase(torch, ft, wide_build)
+    return kernels
 
 
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--rank":
         rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:] == ["--build-wide"]:
+        build_wide_main()
     else:
         main()

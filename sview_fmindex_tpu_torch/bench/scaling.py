@@ -97,8 +97,12 @@ def _rank_run(workdir: str, world: int, rank: int, device: str | None) -> dict:
         distributed.shutdown()
 
 
-def _spawn(workdir: str, world: int, device: str | None) -> dict:
-    """Run ``world`` ranks as child processes; returns rank 0's numbers."""
+def _spawn(workdir: str, world: int, device: str | None, entry: list | None = None) -> list:
+    """Run ``world`` ranks as child processes; returns every rank's numbers,
+    rank order.  ``entry``: the command a child runs, to which ``--rank R
+    --world N --workdir DIR [--device D]`` is added (default: this module's
+    rank of the scaling report); it writes ``result<N>_<R>.json`` into the
+    work directory."""
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env = dict(os.environ, PYTHONPATH=pkg_root + os.pathsep + os.environ.get("PYTHONPATH", ""))
     if device == "cpu":
@@ -106,8 +110,8 @@ def _spawn(workdir: str, world: int, device: str | None) -> dict:
     _fresh_store(workdir, world, None)
     procs = []
     for rank in range(world):
-        cmd = [sys.executable, "-m", "sview_fmindex_tpu_torch.bench.scaling", "--rank",
-               str(rank), "--world", str(world), "--workdir", workdir]
+        cmd = [*(entry or [sys.executable, "-m", "sview_fmindex_tpu_torch.bench.scaling"]),
+               "--rank", str(rank), "--world", str(world), "--workdir", workdir]
         if device:
             cmd += ["--device", device]
         out = open(os.path.join(workdir, f"rank{world}_{rank}.log"), "wb")
@@ -138,17 +142,23 @@ def _spawn(workdir: str, world: int, device: str | None) -> dict:
             with open(os.path.join(workdir, f"rank{world}_{rank}.log"), errors="replace") as f:
                 logs.append(f"--- rank {rank} ---\n{f.read()[-3000:]}")
         raise RuntimeError(failed + "\n" + "\n".join(logs))
-    with open(os.path.join(workdir, f"result{world}_0.json")) as f:
-        return json.load(f)
+    out = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"result{world}_{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
 
 
 def run_scaling(text_len: int, pattern_count: int, pattern_len: int = 20,
-                seed: int = 42, mesh_sizes=None, device=None, workdir=None) -> dict:
+                seed: int = 42, mesh_sizes=None, device=None, workdir=None,
+                per_rank: bool = False) -> dict:
     """The report over ``mesh_sizes`` ranks (default: 1, 2, 4, ... up to the
     GPUs of this host; 1 and 2 on the CPU).  ``device``: None for the card
     (raises where there is none) or ``"cpu"``.  ``workdir``: where the blob,
     the batch and the children's logs go (default: a temporary directory,
-    removed afterwards)."""
+    removed afterwards).  ``per_rank``: weak scaling, ``pattern_count``
+    patterns for every rank (each row then carries its ``batch``, and its
+    efficiency is the one-rank batch time over its own)."""
     import torch
 
     from .. import (
@@ -176,8 +186,12 @@ def run_scaling(text_len: int, pattern_count: int, pattern_len: int = 20,
         text_len, enc.symbol_count(), enc, position="u32", block=BLOCK3_U64,
         suffix_array_config=SuffixArrayConfig.compressed(2),
         lookup_table_config=LookupTableConfig.kmer_size(3))
-    starts = rng.integers(0, text_len - pattern_len, size=pattern_count)
-    patterns = np.ascontiguousarray(text[starts[:, None] + np.arange(pattern_len)])
+
+    def draw(count: int) -> np.ndarray:
+        starts = rng.integers(0, text_len - pattern_len, size=count)
+        return np.ascontiguousarray(text[starts[:, None] + np.arange(pattern_len)])
+
+    patterns = draw(pattern_count)
 
     own_dir = workdir is None
     workdir = tempfile.mkdtemp(prefix="sview_scaling_") if own_dir else str(workdir)
@@ -192,7 +206,11 @@ def run_scaling(text_len: int, pattern_count: int, pattern_len: int = 20,
         virtual = False
         dev_name = None if on_card else "cpu"
         for n in mesh_sizes:
-            res = _rank_run(workdir, 1, 0, dev_name) if n == 1 else _spawn(workdir, n, dev_name)
+            if per_rank:
+                batch = pattern_count * n
+                np.save(os.path.join(workdir, "patterns.npy"),
+                        patterns if n == 1 else draw(batch))
+            res = _rank_run(workdir, 1, 0, dev_name) if n == 1 else _spawn(workdir, n, dev_name)[0]
             # ranks that share a device say nothing of scaling over devices
             virtual = virtual or not on_card or n > n_gpus
             qps = res["qps"]
@@ -202,6 +220,8 @@ def run_scaling(text_len: int, pattern_count: int, pattern_len: int = 20,
             rows.append({"devices": n, "count_qps": round(qps, 1),
                          "speedup": round(qps / base_qps, 2),
                          "efficiency": round(eff, 3)})
+            if per_rank:
+                rows[-1]["batch"] = batch
             _log(f"[scaling] {n} rank(s) over {res['backend']}: {qps/1e6:.3f} Mq/s, "
                  f"speedup {qps/base_qps:.2f}x, efficiency {eff:.1%}")
     finally:

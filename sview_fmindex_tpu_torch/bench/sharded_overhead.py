@@ -43,6 +43,35 @@ def timed(label: str, fn, reps: int) -> None:
           flush=True)
 
 
+def count_overhead(dev, sh, patterns, windows: int = 5, reps: int = 6) -> dict:
+    """The sharded ``count`` against the plain one on the same batch:
+    ``windows`` windows of ``reps`` calls each, plain and sharded in turns so
+    drift lands on both, each window on a host clock synchronised at both
+    ends; the median window of each, in seconds per call."""
+    def sync() -> None:
+        if patterns.is_cuda:
+            torch.cuda.synchronize(patterns.device)
+
+    def window(fn) -> float:
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / reps
+
+    plain = lambda: dev.count(patterns, use_stream=True)  # noqa: E731
+    sharded = lambda: sh.count(patterns, None)  # noqa: E731
+    plain()
+    sharded()
+    pw, sw = [], []
+    for _ in range(windows):
+        pw.append(window(plain))
+        sw.append(window(sharded))
+    p, s = float(np.median(pw)), float(np.median(sw))
+    return {"plain_s": p, "sharded_s": s, "overhead_frac": s / p - 1}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--text-size", type=float, default=1e7)

@@ -17,6 +17,7 @@ card.
 """
 from __future__ import annotations
 
+import subprocess
 import time
 
 import torch
@@ -108,3 +109,21 @@ def window_rates(fn, n: int, reps: int, windows: int = 5, device=None) -> dict:
         if cuda:
             events.append(reps * n / (start.elapsed_time(end) / 1e3))
     return {"host": host, "events": events}
+
+
+def device_info(device) -> dict:
+    """The device's name, and for a card the ``nvidia-smi`` line with its
+    power limit.  The card is asked for by its UUID: ``nvidia-smi`` numbers
+    every card of the host, torch only those ``CUDA_VISIBLE_DEVICES`` lets
+    through, so an index would name another card."""
+    if device.type != "cuda":
+        return {"platform": "cpu", "name": "cpu", "smi": None}
+    try:
+        uuid = torch.cuda.get_device_properties(device).uuid
+        smi = subprocess.run(
+            ["nvidia-smi", "-i", f"GPU-{uuid}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    except (AttributeError, OSError, subprocess.CalledProcessError, IndexError):
+        smi = None
+    return {"platform": "gpu", "name": torch.cuda.get_device_name(device), "smi": smi}

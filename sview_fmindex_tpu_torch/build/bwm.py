@@ -13,10 +13,10 @@ and ``Block::vectorize`` (``blocks/block2.rs:18-33`` et al.) vectorized:
   (``bwm/mod.rs:97-104,140-142``) == MSB-first packing padded with 0 bits;
   an exactly-full text appends one all-zero block (``bwm/mod.rs:136-138``).
 
-The canonical in-memory layout here is uint32 lanes, big-endian within the
-vector: ``planes_u32[b, j, l]`` covers positions [32l, 32l+32) of block b,
-bit (31 - i%32) <-> position i.  The blob's little-endian vector bytes are a
-pure byte-reversal per vector (see :func:`lanes_to_blob_bytes`).
+MSB-first packing of a block's bits (``np.packbits``) is the vector's
+big-endian bytes; the blob stores each vector little-endian, i.e. those
+bytes reversed.  The body is written block range by block range, about
+``_CHUNK`` positions at a time, straight into the blob.
 """
 from __future__ import annotations
 
@@ -24,84 +24,44 @@ import numpy as np
 
 from ..config import BlockKind
 
-_CHUNK = 1 << 24
+_CHUNK = 1 << 18
 
 
-def checkpoints_and_planes(
-    bwt_plus1: np.ndarray, symbol_count: int, kind: BlockKind
-) -> tuple[np.ndarray, np.ndarray]:
-    """Returns (rank_checkpoints uint64 [n_blocks, sigma],
-                planes uint32 [n_blocks, num_planes, num_lanes])."""
+def write_bwm_body(
+    bwt_plus1: np.ndarray, symbol_count: int, kind: BlockKind,
+    ckpt_out: np.ndarray, blocks_out: np.ndarray,
+) -> None:
+    """Write the rank checkpoints into ``ckpt_out`` ([n_blocks * sigma], the
+    blob's position type) and the bit planes into ``blocks_out`` (uint8
+    [n_blocks * block_bytes]).  Both must start zeroed: the extra all-zero
+    block is not written."""
     n = len(bwt_plus1)
     L = kind.block_len
     sigma = symbol_count
     n_blocks = n // L + 1
     data_blocks = -(-n // L)  # ceil; == n_blocks unless n % L == 0
-
-    symidx = bwt_plus1 - np.uint8(1)
-
-    # --- checkpoints: exclusive cumulative per-symbol counts per block ---
-    # (equality-sum over the reshaped block matrix; orders of magnitude
-    # faster than a flat bincount for Gbp inputs).  Zero padding of the
-    # final partial block inflates its symbol-0 count, but that block's
-    # counts only ever feed the unused last cumsum row: when pad > 0,
-    # data_blocks == n_blocks and ckpt rows stop at cum[n_blocks - 2].
-    pad = data_blocks * L - n
-    if pad:
-        sym2d = np.concatenate([symidx, np.zeros(pad, np.uint8)]).reshape(
-            data_blocks, L
-        )
-    else:
-        sym2d = symidx.reshape(data_blocks, L)
-    per_block = np.empty((data_blocks, sigma), dtype=np.int64)
-    for c in range(sigma):
-        per_block[:, c] = (sym2d == c).sum(axis=1)
-    cum = np.cumsum(per_block, axis=0, dtype=np.int64)
-    # row 0 = zeros; row b = counts before block b.  Whether the last data
-    # block is partial (data_blocks == n_blocks) or the text divides evenly
-    # (extra checkpoint row = totals, bwm/mod.rs:136-137), this is the
-    # exclusive cumsum truncated to n_blocks rows.
-    ckpt = np.zeros((n_blocks, sigma), dtype=np.uint64)
-    ckpt[1:] = cum[: n_blocks - 1].astype(np.uint64)
-
-    # --- bit planes, MSB-first (reuses the zero-padded sym2d) ---
-    lanes = np.empty((n_blocks, kind.num_planes, kind.num_lanes), dtype=np.uint32)
-    for j in range(kind.num_planes):
-        bits = (sym2d >> j) & 1
-        packed = np.packbits(bits, axis=1)  # big-endian bits AND bytes
-        lanes[:data_blocks, j, :] = (
-            packed.reshape(data_blocks, kind.num_lanes, 4)
-            .view(">u4")
-            .astype(np.uint32)
-            .reshape(data_blocks, kind.num_lanes)
-        )
-    if data_blocks < n_blocks:
-        lanes[data_blocks:] = 0  # the extra all-zero block (bwm/mod.rs:136-138)
-    return ckpt, lanes
-
-
-def lanes_to_blob_bytes(lanes: np.ndarray, kind: BlockKind) -> bytes:
-    """uint32 big-endian lanes -> the blob's little-endian vector bytes.
-
-    A vector's integer value has lane 0 as its most-significant 32 bits; the
-    blob stores it little-endian, i.e. bytes fully reversed per vector.
-    """
-    n_blocks = lanes.shape[0]
-    be_bytes = lanes.astype(">u4").view(np.uint8).reshape(
-        n_blocks, kind.num_planes, kind.num_lanes * 4
-    )
-    le_bytes = be_bytes[:, :, ::-1]
-    return np.ascontiguousarray(le_bytes).tobytes()
-
-
-def blob_bytes_to_lanes(raw: np.ndarray, n_blocks: int, kind: BlockKind) -> np.ndarray:
-    """Inverse of :func:`lanes_to_blob_bytes`; ``raw`` is a uint8 view."""
-    vb = kind.num_lanes * 4
-    le = raw.reshape(n_blocks, kind.num_planes, vb)
-    be = le[:, :, ::-1]
-    return (
-        np.ascontiguousarray(be)
-        .view(">u4")
-        .astype(np.uint32)
-        .reshape(n_blocks, kind.num_planes, kind.num_lanes)
-    )
+    ckpt = ckpt_out.reshape(n_blocks, sigma)
+    blocks = blocks_out.reshape(n_blocks, kind.num_planes, L // 8)
+    carry = np.zeros(sigma, dtype=np.int64)  # counts before the current block
+    step = max(1, _CHUNK // L)
+    for b0 in range(0, data_blocks, step):
+        b1 = min(b0 + step, data_blocks)
+        # the final partial block is zero-padded: its symbol-0 count is
+        # inflated, but only ever lands in a checkpoint row when the text
+        # divides evenly, and then there is no padding
+        sym = np.zeros((b1 - b0) * L, dtype=np.uint8)
+        seg = bwt_plus1[b0 * L : b1 * L]
+        np.subtract(seg, np.uint8(1), out=sym[: len(seg)])
+        sym2d = sym.reshape(b1 - b0, L)
+        per_block = np.empty((b1 - b0, sigma), dtype=np.int64)
+        for c in range(sigma):
+            per_block[:, c] = (sym2d == c).sum(axis=1)
+        cum = np.cumsum(per_block, axis=0)
+        ckpt[b0] = carry
+        ckpt[b0 + 1 : b1] = carry + cum[:-1]
+        carry += cum[-1]
+        for j in range(kind.num_planes):
+            packed = np.packbits((sym2d >> j) & 1, axis=1)  # big-endian bits AND bytes
+            blocks[b0:b1, j] = packed[:, ::-1]
+    if n_blocks > data_blocks:
+        ckpt[data_blocks] = carry  # the extra block's row: the totals

@@ -4,26 +4,39 @@ Reproduces the semantics of ``CountArrayHeader::count_and_encode_text``
 (``src/components/count_array.rs:78-145``) with vectorized numpy instead of
 the reference's single reverse pass:
 
-- the text is re-encoded in place to ``symidx + 1`` (sentinel reserves 0),
+- the text is re-encoded to ``symidx + 1`` (sentinel reserves 0),
 - ``count_array[v]`` accumulates occurrences of encoded value v, then is
   prefix-summed (so ``count_array[i]`` = #symbols with index < i),
 - the k-mer table counts, for every text position p, the base-(sigma+1)
   number formed by ``enc[p..p+k)`` with past-end digits = 0 (the reference's
   rolling ``table_index`` walked right-to-left computes exactly this), then
   is prefix-summed.
+
+Every pass over the text runs in pieces of ``_CHUNK`` positions, so no
+temporary grows with the text (numpy widens a uint8 index or count input
+to 8 bytes per element).
 """
 from __future__ import annotations
 
 import numpy as np
 
-_CHUNK = 1 << 24
+_CHUNK = 1 << 18
 
 
-def encode_text(text: np.ndarray, table: np.ndarray | None) -> np.ndarray:
-    """raw bytes -> symidx+1 (uint8).  ``table=None`` means PassThrough."""
-    if table is None:
-        return text + np.uint8(1)
-    return table[text] + np.uint8(1)
+def encode_text(text: np.ndarray, table: np.ndarray | None,
+                out: np.ndarray | None = None) -> np.ndarray:
+    """raw bytes -> symidx+1 (uint8), written into ``out`` (a new array if
+    None).  ``table=None`` means PassThrough."""
+    n = len(text)
+    out = np.empty(n, np.uint8) if out is None else out
+    plus1 = None if table is None else table + np.uint8(1)
+    for a in range(0, n, _CHUNK):
+        b = min(a + _CHUNK, n)
+        if plus1 is None:
+            np.add(text[a:b], np.uint8(1), out=out[a:b])
+        else:
+            np.take(plus1, text[a:b], out=out[a:b], mode="clip")
+    return out
 
 
 def count_and_kmer_tables(
@@ -33,26 +46,21 @@ def count_and_kmer_tables(
 
     ``enc_plus1`` holds values in [1, sigma].
     """
-    sigma = symbol_count
-    base = sigma + 1
+    base = symbol_count + 1
     n = len(enc_plus1)
-
-    counts = np.bincount(enc_plus1, minlength=base)[:base].astype(np.uint64)
-    count_array = np.cumsum(counts, dtype=np.uint64)
-
     table_len = base**kmer_size
+    counts = np.zeros(base, dtype=np.int64)
     kmer_counts = np.zeros(table_len, dtype=np.int64)
-    # k-mer index per position, chunked to bound memory at Gbp scale.
-    padded = np.concatenate(
-        [enc_plus1.astype(np.int64, copy=False), np.zeros(kmer_size - 1, np.int64)]
-    ) if kmer_size > 1 else enc_plus1.astype(np.int64, copy=False)
     for start in range(0, n, _CHUNK):
         stop = min(start + _CHUNK, n)
+        counts += np.bincount(enc_plus1[start:stop], minlength=base)[:base]
         idx = np.zeros(stop - start, dtype=np.int64)
         for i in range(kmer_size):
             idx *= base
-            idx += padded[start + i : stop + i]
+            digits = enc_plus1[start + i : stop + i]  # past-end digits are 0
+            idx[: len(digits)] += digits
         kmer_counts += np.bincount(idx, minlength=table_len)
+    count_array = np.cumsum(counts, dtype=np.uint64)
     kmer_table = np.cumsum(kmer_counts, dtype=np.uint64)
     return count_array, kmer_table
 

@@ -123,7 +123,8 @@ class FmIndexBuilder:
 
         # 2) count array body (count_array.rs:78-136)
         table = self.text_encoder.table if isinstance(self.text_encoder, EncodingTable) else None
-        enc_plus1 = ca_build.encode_text(text_u8, table)
+        padded = bwt_build.padded_text(self.text_len)
+        enc_plus1 = ca_build.encode_text(text_u8, table, out=padded[1:-1])
         count_array, kmer_table = ca_build.count_and_kmer_tables(
             enc_plus1, self.symbol_count, hdr.lookup_table_kmer_size
         )
@@ -134,24 +135,24 @@ class FmIndexBuilder:
         _write(out, base + km_off, multiplier.astype("<u8"))
         _write(out, base + kt_off, kmer_table.astype(pdt))
 
-        # 3) suffix array body + BWT (suffix_array/mod.rs:57-70)
-        bwt_plus1, pidx, sampled_sa = bwt_build.bwt_and_sampled_sa(
-            enc_plus1, ratio, sa_backend=self.sa_backend, sa_full_path=sa_full_path
+        # 3) suffix array body + BWT (suffix_array/mod.rs:57-70); the SA
+        # lives only inside this call
+        bwt_plus1, pidx = bwt_build.bwt_and_sampled_sa(
+            padded, ratio, _view(out, lay.sa_body_off, lay.sa_header.suffix_array_len, pdt),
+            sa_backend=self.sa_backend, sa_full_path=sa_full_path,
         )
-        del enc_plus1
-        _write(out, lay.sa_body_off, sampled_sa.astype(pdt))
+        del padded
 
         # 4) BWM body (bwm/mod.rs:91-143)
-        ckpt, lanes = bwm_build.checkpoints_and_planes(bwt_plus1, self.symbol_count, self.block)
-        del bwt_plus1
-        ckpt_off, blocks_off, _ = lay.bwm_header.body_layout(
-            pdt.itemsize, self.block.block_bytes, lay.align
-        )
+        bh = lay.bwm_header
+        ckpt_off, blocks_off, _ = bh.body_layout(pdt.itemsize, self.block.block_bytes, lay.align)
         base = lay.bwm_body_off
         _write(out, base, np.array([pidx], dtype=pdt))
-        _write(out, base + ckpt_off, ckpt.astype(pdt).reshape(-1))
-        blocks_bytes = bwm_build.lanes_to_blob_bytes(lanes, self.block)
-        _write(out, base + blocks_off, np.frombuffer(blocks_bytes, np.uint8))
+        bwm_build.write_bwm_body(
+            bwt_plus1, self.symbol_count, self.block,
+            _view(out, base + ckpt_off, bh.rank_checkpoints_len, pdt),
+            _view(out, base + blocks_off, bh.blocks_len * self.block.block_bytes, np.uint8),
+        )
 
         return out.tobytes() if blob is None else blob
 
@@ -159,3 +160,10 @@ class FmIndexBuilder:
 def _write(out: np.ndarray, offset: int, arr: np.ndarray) -> None:
     raw = np.frombuffer(np.ascontiguousarray(arr).data, np.uint8)
     out[offset : offset + len(raw)] = raw
+
+
+def _view(out: np.ndarray, offset: int, count: int, dtype) -> np.ndarray:
+    """``count`` items of ``dtype`` of the blob from ``offset``: a view the
+    build passes write into."""
+    dtype = np.dtype(dtype)
+    return out[offset : offset + count * dtype.itemsize].view(dtype)

@@ -20,7 +20,8 @@ A call with a fourth element, ``(method, args, kwargs, "raises")``, is
 expected to raise ``ValueError`` on every rank; its result is ``("raised",
 message)``.
 
-Each rank returns ``{case name: {"calls": [numpy results...], "info": {...}}}``.
+Each rank returns ``{case name: {"calls": [numpy results...], "info": {...},
+"stats": [range_shard.STATS after each call that returned...]}}``.
 """
 from __future__ import annotations
 
@@ -109,6 +110,7 @@ def main(workdir: str, world: int, rank: int) -> None:
     from sview_fmindex_tpu_torch.parallel import distributed
     from sview_fmindex_tpu_torch.parallel.mesh import make_mesh
     from sview_fmindex_tpu_torch.parallel.query import ShardedFmIndex
+    from sview_fmindex_tpu_torch.parallel import range_shard
     from sview_fmindex_tpu_torch.parallel.range_shard import RangeShardedFmIndex
 
     with open(os.path.join(workdir, "job.pkl"), "rb") as f:
@@ -140,18 +142,22 @@ def main(workdir: str, world: int, rank: int) -> None:
                         n_blocks=fm.rank_checkpoints.shape[0],
                         n_sa=fm.suffix_array.shape[0], text_len=fm.text_len,
                         has_sa_full=obj.meta.has_sa_full, dp_size=obj.dp_size,
-                        sa_dtype=str(obj.sa.dtype))
-        calls = []
+                        sa_dtype=str(obj.sa.dtype), fused_width=obj.fused.shape[1],
+                        kmer_size=obj.meta.kmer_size, dense_k=obj.meta.dense_k)
+        calls, stats = [], []
         for method, args, kwargs, *expect in case["calls"]:
+            for k in range_shard.STATS:
+                range_shard.STATS[k] = 0
             try:
                 calls.append(_to_numpy(getattr(obj, method)(*args, **kwargs)))
+                stats.append(dict(range_shard.STATS))
             except ValueError as exc:
                 if expect != ["raises"]:
                     raise
                 calls.append(("raised", str(exc)))
             else:
                 assert not expect, f"{method} was expected to raise"
-        results[case["name"]] = {"calls": calls, "info": info}
+        results[case["name"]] = {"calls": calls, "info": info, "stats": stats}
     assert "jax" not in sys.modules and "sview_fmindex_tpu" not in sys.modules
     assert not any(stream_join.LAUNCHES.values())  # the CPU runs the plain version
     tmp = os.path.join(workdir, f"out{rank}.pkl.tmp")

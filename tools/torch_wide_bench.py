@@ -54,7 +54,7 @@ def check(cond, msg: str) -> None:
 def main(argv=None) -> dict:
     import torch
 
-    from sview_fmindex_tpu_torch.bench.timing import force, window_rates
+    from sview_fmindex_tpu_torch.bench.timing import device_info, force, window_rates
     from sview_fmindex_tpu_torch.models.device_index import DeviceFmIndex, resolve_device
     from sview_fmindex_tpu_torch.ops.locate import expand_capacity
 
@@ -65,7 +65,7 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     text_size = bench_torch.settings()["text_size"]
     B = int(float(os.environ.get("WIDE_BENCH_BATCH", "100000")))
-    info = bench_torch.device_info(device)
+    info = device_info(device)
     log(f"[wide-bench] device: {info['smi'] or info['name']}")
 
     text = bench_torch.get_text(text_size)
