@@ -85,16 +85,20 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    collective LF walk) and with ``sa_full`` (the device-filled SA copied to
    the host): the same checks, rates, and the share of a locate call spent
    in ``all_reduce`` (from a second, instrumented call); it launches no
-   hand kernel.
+   hand kernel.  Then the two wide steps of the JAX package's multichip dry
+   run on the same 1e8 bp blob: ``RangeShardedFmIndex(..., force_wide=True)``
+   with the walk (and ``sa_full`` refused, as there), and ``ShardedFmIndex``
+   over ``to_device_torch(fm, force_wide=True)`` with ``use_stream=True``,
+   which must launch the segmented rank mode; answers equal the narrow ones.
 11. parallel, two ranks on the one card (last, when the card is empty): two
    child processes of this script, gloo (the ranks share a device), both on
    ``cuda:0``, over a ``SMOKE_PAR_TEXT_SIZE`` bp blob (default 1e7) and
    B=100k: ``ShardedFmIndex`` (each rank launches the join kernel on its
-   half), ``RangeShardedFmIndex`` with ``rs=2`` (walk and ``sa_full``) and
-   the ``(rs=2) x (dp=1)`` mesh; every rank compares with its own unsharded
-   answers and checks that neither ``jax`` nor ``sview_fmindex_tpu`` was
-   imported.  A child that fails or outlasts its deadline is killed and
-   fails the run.
+   half), ``RangeShardedFmIndex`` with ``rs=2`` (walk and ``sa_full``, then
+   ``force_wide`` with the walk) and the ``(rs=2) x (dp=1)`` mesh; every
+   rank compares with its own unsharded answers and checks that neither
+   ``jax`` nor ``sview_fmindex_tpu`` was imported.  A child that fails or
+   outlasts its deadline is killed and fails the run.
 12. bench surfaces (after phase 9, before phase 11, on an empty card): the
    entry points that measure, each step failing the run if it raises, exits
    non-zero or prints a malformed line.  (0) a sigma-6 PassThrough index on
@@ -143,9 +147,20 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    read the blob: the wide engine and the range-sharded answers must equal
    it.
 
-No earlier phase was cut in depth to make room for later ones: phase 12
-takes 70-140 s and the whole 300-450 s on an NVIDIA H100 80GB HBM3 (700 W),
-by how fast the host is.
+14. card suite (after phase 12, before phase 11): the port's card tests,
+   ``tests/test_torch_card_matrix.py`` (every interop corpus case from its
+   blob and from a seeded 30-40 k symbol text, narrow and wide, every upload
+   option, held to the CPU upload and the host oracle),
+   ``tests/test_torch_corpus.py`` and ``tests/test_torch_kernels.py``, run
+   with ``-m cuda --noconftest`` in a child pytest process.  Passed must
+   equal collected; a failure, an error or a skip fails the run.  All four
+   join modes must have launched in the matrix, and sigma 9, 24 and 40
+   through an engine.  Prints a ``{"card_suite": ...}`` line: the counts,
+   seconds per file and the matrix's launches by mode and ``mode@sigma``.
+
+No earlier phase was cut in depth to make room for later ones: on an NVIDIA
+H100 80GB HBM3 (700 W) phase 12 takes 70-235 s, phase 14 115-165 s, and
+the whole 575-705 s, by how fast the host is.
 
 The last lines are the kernel summary (JSON: per kernel its launches on the
 main path, its time, the plain version's, and ``bound_ms``, the least time
@@ -176,6 +191,12 @@ PAR_BATCH = 100_000
 PAR_CHILD_DEADLINE = 420  # seconds for the two-rank run, start to exit
 PAR_GROUP_TIMEOUT = 120  # seconds, every collective of every group
 SURFACE_DEADLINE = 300  # seconds for one bench surface run as a subprocess
+CARD_SUITE_DEADLINE = 600  # seconds for phase 14's pytest child
+# phase 14: the port's card tests, and the alphabets no other phase sends
+# through an engine, which the matrix must launch the kernel at
+CARD_SUITE = ("tests/test_torch_card_matrix.py", "tests/test_torch_corpus.py",
+              "tests/test_torch_kernels.py")
+CARD_SUITE_SIGMAS = (9, 24, 40)
 WIDE_SCALE_DEADLINE = 1800  # seconds for the scale check at 4.5e9: it stages 18 GB of SA
 MICRO_BATCHES = "1000,4000,16000,65536,262144,1000000"
 CLI_TEXT, CLI_PATTERNS, CLI_COLD = 1_000_000, 1000, 0.1
@@ -1196,6 +1217,84 @@ def bench_surfaces_phase(torch, ft, dense_k: int) -> int:
     return rank_launches
 
 
+def junit_counts(path: str) -> dict:
+    """tests, failures, errors, skipped and seconds per test file from a
+    pytest JUnit XML report."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.parse(path).getroot()
+    suite = root if root.tag == "testsuite" else root.find("testsuite")
+    out = {k: int(suite.get(k, 0)) for k in ("tests", "failures", "errors", "skipped")}
+    secs = collections.Counter()
+    for case in suite.iter("testcase"):
+        secs[case.get("classname", "").rsplit(".", 1)[-1] + ".py"] += float(case.get("time", 0))
+    out["file_s"] = {k: round(v, 1) for k, v in secs.items()}
+    return out
+
+
+def card_suite_phase() -> dict:
+    """Phase 14: the port's card tests (``CARD_SUITE``, ``-m cuda``) in a
+    child pytest process.  Every collected test must pass: a failure, an
+    error or a skip (no fallback may hide the card) fails the run.  The
+    matrix writes its join launches (``SVIEW_CARD_LAUNCHES``): all four modes
+    must have launched, and the alphabets of ``CARD_SUITE_SIGMAS`` through an
+    engine.  Prints one ``{"card_suite": ...}`` line."""
+    work = tempfile.mkdtemp(prefix="sview_card_suite_")
+    launches_path = os.path.join(work, "launches.json")
+    xml = os.path.join(work, "card.xml")
+    args = [sys.executable, "-m", "pytest", *CARD_SUITE, "-m", "cuda", "-q", "--noconftest",
+            "-p", "no:cacheprovider"]
+    env = dict(os.environ, SVIEW_CARD_LAUNCHES=launches_path,
+               PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    try:
+        # the collection runs beside the tests: it needs the host only
+        with open(os.path.join(work, "collected.txt"), "w+") as listing:
+            lister = subprocess.Popen([*args, "--collect-only"], env=env, cwd=REPO_DIR,
+                                      stdout=listing, stderr=subprocess.STDOUT)
+            try:
+                try:
+                    proc = subprocess.run([*args, f"--junitxml={xml}"], env=env, cwd=REPO_DIR,
+                                          text=True, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, timeout=CARD_SUITE_DEADLINE)
+                except subprocess.TimeoutExpired:  # run() has killed the child
+                    raise RuntimeError(f"card suite: still running after {CARD_SUITE_DEADLINE} s")
+                lister_rc = lister.wait(timeout=SURFACE_DEADLINE)
+            finally:
+                if lister.poll() is None:
+                    lister.kill()
+                    lister.wait()
+            secs = time.perf_counter() - t0
+            listing.seek(0)
+            listed = listing.read()
+        counts = junit_counts(xml) if os.path.exists(xml) else {}
+        launched = {"launches": {}, "by_sigma": {}}
+        if os.path.exists(launches_path):
+            with open(launches_path) as f:
+                launched = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    collected = sum("::" in ln for ln in listed.splitlines())
+    check(lister_rc == 0 and collected > 0, f"card suite: collection failed\n{listed[-3000:]}")
+    passed = counts.get("tests", 0) - sum(counts.get(k, 0) for k in ("failures", "errors",
+                                                                      "skipped"))
+    res = dict(collected=collected, passed=passed, failed=counts.get("failures"),
+               errors=counts.get("errors"), skipped=counts.get("skipped"), seconds=round(secs, 1),
+               file_s=counts.get("file_s"), exit_code=proc.returncode, **launched)
+    log(json.dumps({"card_suite": res}))
+    check(proc.returncode == 0 and passed == collected and counts.get("tests")
+          and counts["failures"] == counts["errors"] == counts["skipped"] == 0,
+          f"card suite: {passed} of {collected} passed\n{proc.stdout[-6000:]}")
+    modes = launched["launches"]
+    check(all(modes.get(m, 0) > 0 for m in ("rank", "decode", "rank_seg", "decode_seg")),
+          f"card suite: a join mode never launched in the matrix: {modes}")
+    for sigma in CARD_SUITE_SIGMAS:
+        check(any(k.endswith(f"@{sigma}") and n > 0 for k, n in launched["by_sigma"].items()),
+              f"card suite: nothing launched at sigma {sigma}")
+    log(f"[card_suite] {passed} of {collected} card tests passed in {secs:.1f} s")
+    return res
+
+
 def fresh_store(tag: str) -> str:
     """A path for a ``file://`` rendezvous store that no earlier run left."""
     path = os.path.join(CACHE_DIR, f"store_{tag}_{os.getpid()}")
@@ -1206,15 +1305,16 @@ def fresh_store(tag: str) -> str:
 
 
 def check_sharded(torch, tag: str, obj, pats_np, want: dict, n: int, rate, reps: int,
-                  capacity_kw: str) -> None:
+                  capacity_kw: str, **call_kw) -> None:
     """One batch through ``obj.count`` and ``obj.locate`` (a ``ShardedFmIndex``
-    or ``RangeShardedFmIndex``): counts equal to the unsharded ones exactly,
-    locations equal as sets per pattern, nothing dropped; then queries/s of
-    both calls (``rate``: the clock), the locate at its auto-sized capacity."""
+    or ``RangeShardedFmIndex``; ``call_kw`` passed to both): counts equal to
+    the unsharded ones exactly, locations equal as sets per pattern, nothing
+    dropped; then queries/s of both calls (``rate``: the clock), the locate
+    at its auto-sized capacity."""
     B = pats_np.shape[0]
     patterns = torch.from_numpy(pats_np).to(DEVICE)
-    counts = obj.count(patterns, None)
-    locs, pids, valid, dropped = obj.locate(patterns, None)
+    counts = obj.count(patterns, None, **call_kw)
+    locs, pids, valid, dropped = obj.locate(patterns, None, **call_kw)
     torch.cuda.synchronize()
     check(counts.is_cuda and locs.is_cuda, "a sharded answer is not on the card")
     check(np.array_equal(counts.cpu().numpy(), want["counts"]), f"{tag}: counts != unsharded")
@@ -1222,8 +1322,8 @@ def check_sharded(torch, tag: str, obj, pats_np, want: dict, n: int, rate, reps:
     check(np.array_equal(location_sets(locs, pids, valid, n), want["sets"]),
           f"{tag}: location sets != unsharded")
     cap = {capacity_kw: locs.shape[0] // dropped.shape[0]}
-    cq = rate(lambda: obj.count(patterns, None), B, reps)
-    lq = rate(lambda: obj.locate(patterns, None, **cap), B, reps)
+    cq = rate(lambda: obj.count(patterns, None, **call_kw), B, reps)
+    lq = rate(lambda: obj.locate(patterns, None, **cap, **call_kw), B, reps)
     log(f"[{tag}] B={B}: counts and per-pattern location sets equal the unsharded ones, "
         f"dropped 0; count {max(cq) / 1e6:.3f} Mq/s (worst window {min(cq) / 1e6:.3f}), "
         f"locate {max(lq) / 1e6:.3f} Mq/s (worst window {min(lq) / 1e6:.3f})")
@@ -1254,24 +1354,35 @@ def all_reduce_share(torch, tag: str, obj, pats_np) -> None:
 
 
 def range_sharded_checks(torch, tag: str, fm, mesh, sa_host, batches: dict, rate, reps: int,
-                         **kw) -> None:
+                         force_wide: bool = False, **kw) -> None:
     """``RangeShardedFmIndex`` over ``mesh`` with the sampled SA (the
     collective walk) and with the full SA ``sa_host``: this rank holds its
     block range and no more, every batch passes :func:`check_sharded`, and
-    no hand kernel is launched (the gather engine serves it)."""
+    no hand kernel is launched (the gather engine serves it).  With
+    ``force_wide`` the tables are the wide engine's (int64 SA): the walk
+    only, since a wide index refuses ``sa_full`` (a narrow-path option, in
+    the JAX package too), which is checked."""
     from sview_fmindex_tpu_torch.ops import stream_join as sj
     from sview_fmindex_tpu_torch.parallel.range_shard import RangeShardedFmIndex
 
     D = mesh.size("rs")
-    for sub, sa_full in (("walk", None), ("sa_full", sa_host)):
+    if force_wide:
+        try:
+            RangeShardedFmIndex(fm, mesh, sa_full=sa_host, force_wide=True, **kw)
+        except ValueError as exc:
+            log(f"[{tag}] sa_full on a wide index: refused ({exc})")
+        else:
+            raise RuntimeError(f"{tag}: a wide RangeShardedFmIndex took sa_full")
+    for sub, sa_full in (("walk", None),) + ((("sa_full", sa_host),) if not force_wide else ()):
         sj.LAUNCHES.clear()
         t0 = time.perf_counter()
-        rs = RangeShardedFmIndex(fm, mesh, sa_full=sa_full, **kw)
+        rs = RangeShardedFmIndex(fm, mesh, sa_full=sa_full, force_wide=force_wide, **kw)
         torch.cuda.synchronize()
         n_sa = (sa_host if sa_full is not None else fm.suffix_array).shape[0]
         check(rs.fused.shape[0] == -(-fm.rank_checkpoints.shape[0] // D)
               and rs.sa.shape[0] == -(-n_sa // D), f"{tag}: a rank holds more than its range")
-        check(rs.meta.has_sa_full == (sa_full is not None), f"{tag}: wrong SA form")
+        check(rs.meta.has_sa_full == (sa_full is not None) and rs.meta.wide_pos == force_wide,
+              f"{tag}: wrong SA form or width")
         log(f"[{tag} {sub}] staged in {time.perf_counter() - t0:.2f} s: {rs.fused.shape[0]} of "
             f"{fm.rank_checkpoints.shape[0]} fused rows, {rs.sa.shape[0]} of {n_sa} SA entries "
             f"on this rank (rs={D}, dp={rs.dp_size}), dense_k={rs.meta.dense_k}")
@@ -1284,9 +1395,37 @@ def range_sharded_checks(torch, tag: str, fm, mesh, sa_host, batches: dict, rate
         torch.cuda.empty_cache()
 
 
+def wide_sharded_step(torch, ft, fm, main: dict, rate) -> None:
+    """``ShardedFmIndex`` over the blob uploaded ``force_wide`` (the second
+    wide step of the JAX package's multichip dry run): the wide stream engine
+    per shard, answers equal to the narrow main path's, and the segmented
+    rank mode launched."""
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+    from sview_fmindex_tpu_torch.parallel.mesh import make_mesh
+    from sview_fmindex_tpu_torch.parallel.query import ShardedFmIndex
+
+    sj.LAUNCHES.clear()
+    sj.LAUNCHES_BY_SIGMA.clear()
+    wdev = upload(torch, ft, fm, "par1 dp wide", force_wide=True)
+    check(wdev.meta.wide_pos and wdev.stream_tbl is not None, "not a wide stream index")
+    wsh = ShardedFmIndex(wdev, make_mesh(axis="dp"))
+    for B, want in main["batches"].items():
+        check_sharded(torch, "par1 dp wide", wsh, want["pats"], want, fm.text_len, rate,
+                      max(8, min(32, int(4e6 // B))), "capacity_per_shard", use_stream=True)
+    launches = dict(sj.LAUNCHES_BY_SIGMA)
+    log(f"[par1 dp wide] join launches by (mode, sigma): {launches}")
+    check(launches.get(("rank_seg", fm.symbol_count), 0) > 0,
+          "a wide ShardedFmIndex never launched the segmented rank mode")
+    check(not sj.LAUNCHES.get("rank") and not sj.LAUNCHES.get("decode"),
+          "a wide ShardedFmIndex launched a narrow join mode")
+    del wsh, wdev
+    torch.cuda.empty_cache()
+
+
 def parallel_one_rank_phase(torch, main: dict) -> None:
     """Phase 10: a one-rank NCCL group in this process, both sharded classes
-    over the main path's index and blob."""
+    over the main path's index and blob, narrow and wide."""
+    import sview_fmindex_tpu_torch as ft
     from sview_fmindex_tpu_torch.ops import stream_join as sj
     from sview_fmindex_tpu_torch.parallel import distributed
     from sview_fmindex_tpu_torch.parallel.mesh import make_mesh
@@ -1317,6 +1456,10 @@ def parallel_one_rank_phase(torch, main: dict) -> None:
         sa_host = dev.sa.cpu().numpy().view(np.uint32)  # the device-filled full SA
         range_sharded_checks(torch, "par1 rs", fm, make_mesh(axis="rs"), sa_host,
                              main["batches"], cuda_rate, 4)
+        # the two wide steps of the JAX package's multichip dry run
+        range_sharded_checks(torch, "par1 rs wide", fm, make_mesh(axis="rs"), sa_host,
+                             main["batches"], cuda_rate, 4, force_wide=True)
+        wide_sharded_step(torch, ft, fm, main, cuda_rate)
     finally:
         distributed.shutdown()
         if os.path.exists(store):
@@ -1372,6 +1515,8 @@ def rank_main(rank: int, world: int, store: str) -> None:
     del sh, dev
     torch.cuda.empty_cache()
     range_sharded_checks(torch, f"{tag} rs", fm, make_mesh(axis="rs"), sa_host, batches, rate, 4)
+    range_sharded_checks(torch, f"{tag} rs wide", fm, make_mesh(axis="rs"), sa_host, batches,
+                         rate, 4, force_wide=True)
     range_sharded_checks(torch, f"{tag} rs x dp", fm,
                          make_mesh(shape=(world, 1), axes=("rs", "dp")), sa_host, batches,
                          rate, 4, dp_axis="dp")
@@ -1597,7 +1742,7 @@ def main() -> None:
 
 
 def smoke(torch, wide_build) -> list[dict]:
-    """Phases 2-13; returns the kernel summary."""
+    """Phases 2-14; returns the kernel summary."""
     import sview_fmindex_tpu_torch as ft
 
     build_phase()
@@ -1619,6 +1764,8 @@ def smoke(torch, wide_build) -> list[dict]:
     torch.cuda.empty_cache()
     rank4 = next(k for k in kernels if k["name"] == "join_rank_sigma4")
     rank4["launches"] = bench_surfaces_phase(torch, ft, dense_k)
+    torch.cuda.empty_cache()
+    card_suite_phase()
     two_rank_phase(ft)
     if wide_build is not None:
         kernels += wide_text_phase(torch, ft, wide_build)
