@@ -67,6 +67,9 @@ SEED = 42
 BASELINE_LOCATE_QPS = 2.3e5  # BASELINE.md derived anchor
 N_RECHECK = 200
 WINDOWS = 5
+# texts up to this size come from one draw, larger ones in chunks (get_text)
+TEXT_ONE_DRAW = 2**31
+TEXT_CHUNK = 1 << 28
 # the headline upload (bench.py:148)
 UPLOAD_KW = dict(dense_lut_entries=1 << 28, dense_host_entries=1 << 20,
                  sa_full="device", sa_fill_ratio=4)
@@ -105,14 +108,24 @@ def blob_path(text_size: int, cache: str | None = None) -> str:
 
 def get_text(text_size: int, cache: str | None = None) -> np.ndarray:
     """uint8 [text_size] seed-42 ACGT text, a read-only memmap of the cached
-    file (only the pattern windows and re-checked locations page in)."""
+    file (only the pattern windows and re-checked locations page in).  Up to
+    ``TEXT_ONE_DRAW`` bp in one draw (the bytes every cached text of that
+    size holds), larger texts in ``TEXT_CHUNK``-byte draws of uint8, so the
+    host never holds more than a chunk of int64.  ``chip_smoke.py`` writes
+    its texts here too: one name, one set of bytes."""
     path = text_path(text_size, cache)
     if not os.path.exists(path):
         rng = np.random.default_rng(SEED)
-        text = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=text_size)]
+        acgt = np.frombuffer(b"ACGT", np.uint8)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.tmp{os.getpid()}"
-        text.tofile(tmp)
+        if text_size <= TEXT_ONE_DRAW:
+            acgt[rng.integers(0, 4, size=text_size)].tofile(tmp)
+        else:
+            with open(tmp, "wb") as f:
+                for a in range(0, text_size, TEXT_CHUNK):
+                    acgt[rng.integers(0, 4, size=min(TEXT_CHUNK, text_size - a),
+                                      dtype=np.uint8)].tofile(f)
         os.replace(tmp, path)
     return np.memmap(path, dtype=np.uint8, mode="r")
 

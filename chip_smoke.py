@@ -50,8 +50,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    beyond it; exactly equal.  Prints both times.  Then the main path's two
    modes on seeded synthetic tables of the 1 Gbp deployment's size, which
    miss L2 as every real index does: ``join_rank_hbm`` (sigma 16, 2^23 rows,
-   1 GiB) and ``join_decode_hbm`` (sigma 4, 2^23 rows), 2M sorted keys each.
-   Then the ragged-edge key sets of ``bench/join_cases.py`` (key counts off
+   1 GiB) and ``join_decode_hbm`` (sigma 4, 2^23 rows), 2M sorted keys each;
+   the same two modes on 2^22-row tables whose checkpoint words all lie in
+   [2^31, 2^32 - 2^24) (``join_rank_hi_ckpt``, ``join_decode_hi_ckpt``), as
+   the tables of a narrow index between 2^31 and 2^32 bp hold them; and the
+   SA fill's unfilled-row scan over 2^31 + 2^20 int32 words (8.6 GB), which
+   must return exactly its 1000 planted rows.  Then the ragged-edge key sets of ``bench/join_cases.py`` (key counts off
    the warp and block size, keys outside the table inside a warp, one row
    for many keys, segment boundaries, unsorted keys) through kernel and plain
    version on the card, all four modes at sigma 4, 16 and 20, exactly equal.
@@ -158,9 +162,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    through an engine.  Prints a ``{"card_suite": ...}`` line: the counts,
    seconds per file and the matrix's launches by mode and ``mode@sigma``.
 
+15. opt-in, with ``SMOKE_NARROW_TEXT_SIZE`` (in (2^31 + 2^20, 2^32 - 2^20);
+   3.1e9, a human genome, is the headline deployment's size; not in one run
+   with phase 13): a u32 blob at the main path's configuration over that
+   many bp (the shared seed-42 text), built by a child process that starts
+   before phase 3, as phase 13's, with per-pass times and its peak RSS.
+   Uploaded as ``bench_torch.py`` uploads (``UPLOAD_KW``, no
+   ``force_wide``): it must stay narrow; seconds and device peak per upload
+   phase.  The filled SA equals the blob's at every sampled row (in pieces),
+   and 100k random adjacent rows hold their suffixes in strict order read
+   from the raw text.  B=100k and 1M (half the starts above 2^31) through
+   the pair-stream engine with the main path's checks, rates on both
+   clocks; located positions and range rows at and above 2^31 counted (some
+   must be); 16 patterns (8 above 2^31) against a scan of the raw text;
+   ``join_rank_pair_narrow_hi`` and ``join_decode_narrow_hi`` against their
+   plain version on the real tables, half the keys above 2^31.  Then the
+   card is freed and the blob goes up again with its sampled SA: B=100k
+   through the stream-decode walk must answer as the full-SA upload did.
+
 No earlier phase was cut in depth to make room for later ones: on an NVIDIA
-H100 80GB HBM3 (700 W) phase 12 takes 70-235 s, phase 14 115-165 s, and
-the whole 575-705 s, by how fast the host is.
+H100 80GB HBM3 (700 W) phase 12 takes 70-235 s, phase 14 100-165 s, and
+the whole 575-705 s, by how fast the host is; with phase 15 at 3.1e9 bp,
+1062-1284 s (its build child alone 883-1094 s).
 
 The last lines are the kernel summary (JSON: per kernel its launches on the
 main path, its time, the plain version's, and ``bound_ms``, the least time
@@ -183,9 +206,12 @@ import time
 
 import numpy as np
 
+import bench_torch
+
 T_START = time.time()
 TEXT_SIZE = int(float(os.environ.get("SMOKE_TEXT_SIZE", "1e8")))
 WIDE_TEXT_SIZE = int(float(os.environ.get("SMOKE_WIDE_TEXT_SIZE", "0")))
+NARROW_TEXT_SIZE = int(float(os.environ.get("SMOKE_NARROW_TEXT_SIZE", "0")))
 PAR_TEXT_SIZE = int(float(os.environ.get("SMOKE_PAR_TEXT_SIZE", "1e7")))
 PAR_BATCH = 100_000
 PAR_CHILD_DEADLINE = 420  # seconds for the two-rank run, start to exit
@@ -215,6 +241,17 @@ KERNEL_KEYS = 1 << 21
 HEAD_START_CYCLES = 6_000_000  # ~3.5 ms of the card's clock before a timed run of launches
 SEG_ROWS = (1 << 25) + (1 << 20)  # 3 segments of 2^24 rows; keys reach 2^32 + 2^27
 HBM_ROWS = 1 << 23  # the tables of a 1 Gbp index: 2^30 positions / 128
+# the narrow tables of an index between 2^31 and 2^32 bp hold checkpoint
+# words of 2^31 and more: synthetic ones, 2^22 rows, in the default run
+HI_CKPT_ROWS = 1 << 22
+HI_CKPT = (2**31, 2**32 - 2**24)
+# the SA fill's unfilled-row scan over more than INT_MAX words, 1000 planted
+SCAN_ENTRIES, SCAN_PLANTED = 2**31 + 2**20, 1000
+# phase 15: the opt-in narrow text lies in this open interval
+NARROW_RANGE = (2**31 + 2**20, 2**32 - 2**20)
+NARROW_HIGH = 2**31  # where a narrow table's words turn negative as int32
+N_ORDER_PAIRS = 100_000  # adjacent SA rows whose suffixes are held in order
+SA_CHECK_PIECE = 1 << 26  # sampled SA rows per piece of the SA fill check
 RAGGED_ROWS, RAGGED_SEG_ROWS = 40, 8
 DEVICE = "cuda"
 JOIN_SRC = "sview_fmindex_tpu_torch/csrc/join.cu"
@@ -288,22 +325,10 @@ def build_phase() -> None:
 
 
 def get_text(size: int) -> np.ndarray:
-    """uint8 [size] ACGT text from seed 42: the bench's generator up to
-    2^31 bp, larger texts in 2^28-byte chunks (bounded host memory)."""
-    path = os.path.join(CACHE_DIR, f"text_{size}_{SEED}.bin")
-    if not os.path.exists(path):
-        rng = np.random.default_rng(SEED)
-        acgt = np.frombuffer(b"ACGT", np.uint8)
-        os.makedirs(CACHE_DIR, exist_ok=True)
-        tmp = f"{path}.tmp{os.getpid()}"
-        if size <= 2**31:
-            acgt[rng.integers(0, 4, size=size)].tofile(tmp)
-        else:
-            with open(tmp, "wb") as f:
-                for a in range(0, size, 1 << 28):
-                    acgt[rng.integers(0, 4, size=min(1 << 28, size - a), dtype=np.uint8)].tofile(f)
-        os.replace(tmp, path)
-    return np.memmap(path, dtype=np.uint8, mode="r")
+    """uint8 [size] ACGT text from seed 42, cached under ``bench_cache/``:
+    the bench's generator (``bench_torch.get_text``), so the two scripts
+    write one set of bytes under one name at every size."""
+    return bench_torch.get_text(size, CACHE_DIR)
 
 
 def _cached_text(name: str, make) -> np.ndarray:
@@ -387,10 +412,12 @@ def measure(fn, B: int, reps: int, windows: int = 5, clock: str = "events"):
     """Queries/s per window of ``reps`` back-to-back calls after one warm
     call (``bench.timing.window_rates``, the bench surfaces' idiom), read
     from CUDA events or, with ``clock="host"``, on the synchronised host
-    clock: collectives staged through the host are not on the device's."""
+    clock: collectives staged through the host are not on the device's.
+    ``clock=None``: both clocks' rates of the same windows."""
     from sview_fmindex_tpu_torch.bench import timing
 
-    return timing.window_rates(fn, B, reps, windows, device=DEVICE)[clock]
+    rates = timing.window_rates(fn, B, reps, windows, device=DEVICE)
+    return rates if clock is None else rates[clock]
 
 
 def location_sets(locs, pids, valid, n: int) -> np.ndarray:
@@ -436,26 +463,51 @@ def check_batch(torch, fm, dev, text, pats_np, lens, patterns, counts, out) -> N
               f"locations of pattern {i} vs host")
 
 
+@contextlib.contextmanager
+def phase_peaks(torch, peaks: dict):
+    """Device peak memory per upload phase, into ``peaks``: at each phase
+    end of ``DeviceFmIndex.from_host`` (``_PhaseClock``) torch's peak
+    counter is read and reset."""
+    from sview_fmindex_tpu_torch.models import device_index
+
+    real = device_index._PhaseClock.__call__
+
+    def call(clock, label):
+        real(clock, label)
+        peaks[label] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    device_index._PhaseClock.__call__ = call
+    try:
+        yield peaks
+    finally:
+        device_index._PhaseClock.__call__ = real
+
+
 def upload(torch, ft, fm, tag: str, **kwargs):
-    """Upload and log seconds per phase and device memory."""
+    """Upload and log seconds and device peak memory per phase."""
     torch.cuda.reset_peak_memory_stats()
+    peaks = {}
     t0 = time.perf_counter()
-    dev = ft.to_device_torch(fm, **kwargs)  # no device named: the card
+    with phase_peaks(torch, peaks):
+        dev = ft.to_device_torch(fm, **kwargs)  # no device named: the card
     check(dev.device.type == DEVICE, f"the default upload landed on {dev.device}")
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
-    phases = ", ".join(f"{k} {v:.2f}" for k, v in dev.upload_phases.items())
+    peak = max([torch.cuda.max_memory_allocated(), *peaks.values()])
+    phases = ", ".join(f"{k} {v:.2f} s, peak {peaks[k] / 2**30:.2f} GiB"
+                       for k, v in dev.upload_phases.items())
     log(f"[{tag}] upload {upload_s:.2f} s ({phases}); wide={dev.meta.wide_pos}, "
         f"dense_k={dev.meta.dense_k}, pair={dev.meta.pair_rows > 0}, "
         f"sa_full={dev.meta.has_sa_full}; resident "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB")
     return dev
 
 
 def run_batch(torch, fm, dev, text, tag: str, pats_np, engine: str, lens=None):
     """One batch through count + locate_with_counts(use_stream=True): every
-    check, then queries/s.  ``lens``: per-pattern lengths (None: uniform).
+    check, then queries/s from CUDA events and, of the same windows, the
+    synchronised host clock.  ``lens``: per-pattern lengths (None: uniform).
     Returns (counts, location sets, the locate output, seconds after start
     when the first call had answered)."""
     from sview_fmindex_tpu_torch.ops.locate import expand_capacity
@@ -472,9 +524,10 @@ def run_batch(torch, fm, dev, text, tag: str, pats_np, engine: str, lens=None):
     answered_at = time.time() - T_START
     check_batch(torch, fm, dev, text, pats_np, lens, patterns, counts, out)
     reps = max(8, min(32, int(4e6 // B)))
-    cq = measure(lambda: dev.count(patterns, lens, use_stream=True), B, reps)
-    lq = measure(lambda: dev.locate_with_counts(
-        patterns, lens, capacity=capacity, use_stream=True), B, reps)
+    cw = measure(lambda: dev.count(patterns, lens, use_stream=True), B, reps, clock=None)
+    lw = measure(lambda: dev.locate_with_counts(
+        patterns, lens, capacity=capacity, use_stream=True), B, reps, clock=None)
+    cq, lq = cw["events"], lw["events"]
     shape = (" mixed lengths" if lens is not None else "" if pats_np.shape[1] == PATTERN_LEN
              else f" {pats_np.shape[1]}-symbol patterns")
     log(f"[{tag}] B={B}{shape}: checks OK "
@@ -482,20 +535,53 @@ def run_batch(torch, fm, dev, text, tag: str, pats_np, engine: str, lens=None):
         f"parity, {N_ORACLE} host-oracle patterns); first call {warm_s:.3f} s; "
         f"count {max(cq) / 1e6:.3f} Mq/s (worst window {min(cq) / 1e6:.3f}), "
         f"locate {max(lq) / 1e6:.3f} Mq/s (worst window {min(lq) / 1e6:.3f}); "
-        f"{int(counts.sum())} hits, capacity {capacity}")
+        f"{int(counts.sum())} hits, capacity {capacity}; host clock, worst-best: count "
+        f"{span(min(cw['host']), max(cw['host']))}, locate {span(min(lw['host']), max(lw['host']))}")
     RATES[tag, B] = dict(count=cq, locate=lq)
     locs, pids, valid = out[:3]
     return counts.cpu().numpy(), location_sets(locs, pids, valid, fm.text_len), out, answered_at
 
 
 def sa_fill_check(torch, fm, dev, tag: str) -> None:
+    """The filled SA at every sampled row equals the blob's sampled SA,
+    compared a piece of SA_CHECK_PIECE rows at a time (no whole-SA copy)."""
     from sview_fmindex_tpu_torch.ops.rank import u32
 
     r = fm.sampling_ratio
-    check(torch.equal(u32(dev.sa[::r]), torch.tensor(fm.suffix_array.astype(np.int64),
-                                                      device=DEVICE)),
-          "filled SA != the blob's sampled SA at the sampled rows")
-    log(f"[{tag}] SA fill check: {fm.suffix_array.shape[0]} sampled rows OK")
+    m = fm.suffix_array.shape[0]
+    check(-(-dev.sa.shape[0] // r) == m, "the filled SA's length")
+    for a in range(0, m, SA_CHECK_PIECE):
+        want = torch.from_numpy(fm.suffix_array[a:a + SA_CHECK_PIECE].astype(np.int64)).to(DEVICE)
+        check(torch.equal(u32(dev.sa[a * r:(a + want.shape[0]) * r:r]), want),
+              f"filled SA != the blob's sampled SA at the sampled rows from {a * r}")
+    log(f"[{tag}] SA fill check: {m} sampled rows OK")
+
+
+def sa_order_check(torch, dev, text, tag: str, rng) -> None:
+    """N_ORDER_PAIRS random adjacent rows (i, i+1) of the filled SA: the
+    suffixes at SA[i] and SA[i+1], read from the raw text 32 bytes at a
+    time, are in strict order (the end of the text sorts first).  It holds
+    the rows the push rounds wrote, which no sampled row covers, to an
+    oracle that reads no table."""
+    from sview_fmindex_tpu_torch.ops.rank import u32
+
+    n = text.shape[0]
+    rows = torch.from_numpy(rng.integers(0, n - 1, N_ORDER_PAIRS)).to(DEVICE)
+    first, second = (u32(dev.sa[i]).cpu().numpy() for i in (rows, rows + 1))
+    for x, y in zip(first.tolist(), second.tolist()):
+        k = 0
+        while True:
+            u, v = bytes(text[x + k:x + k + 32]), bytes(text[y + k:y + k + 32])
+            if u != v or len(u) < 32:
+                break
+            k += 32
+        check(u < v, f"suffixes at SA rows holding {x} and {y} are out of order")
+    rows_hi = int((rows >= NARROW_HIGH).sum())
+    vals_hi = int((first >= NARROW_HIGH).sum() + (second >= NARROW_HIGH).sum())
+    log(f"[{tag}] SA order check: {N_ORDER_PAIRS} adjacent row pairs in strict suffix order "
+        f"against the raw text; {rows_hi} of the pairs' rows and {vals_hi} of their "
+        f"{2 * N_ORDER_PAIRS} SA values at or above 2^31")
+    check(rows_hi > 0 and vals_hi > 0, "the order check reached no row or value of 2^31 or more")
 
 
 def main_path(torch, ft) -> dict:
@@ -625,21 +711,27 @@ def kernel_case(torch, name, table, keys, payload, sigma, decode, launches: int,
                 bound_bytes=bound["bound_bytes"])
 
 
-def kernel_keys(torch, dev, rng):
+def kernel_keys(torch, dev, rng, high_from: int | None = None):
     """KERNEL_KEYS sorted keys over [0, n] (one B=1M search pass), the
-    sentinel row's keys and key n included."""
+    sentinel row's keys and key n included; with ``high_from``, half of
+    them drawn from [high_from, n] and the keys on both sides of it."""
     n = int(dev.count_arr[-1])
-    special = torch.tensor([0, dev.sentinel - 1, dev.sentinel, dev.sentinel + 1, n],
-                           device=DEVICE)
-    keys = torch.cat([special, torch.from_numpy(
-        rng.integers(0, n + 1, size=KERNEL_KEYS - special.shape[0])).to(DEVICE)])
-    return torch.sort(keys)[0]
+    special = [0, dev.sentinel - 1, dev.sentinel, dev.sentinel + 1, n]
+    if high_from is not None:
+        special += [high_from - 1, high_from, high_from + 1]
+    special = torch.tensor(special, device=DEVICE)
+    m = KERNEL_KEYS - special.shape[0]
+    drawn = (rng.integers(0, n + 1, size=m) if high_from is None else np.concatenate(
+        [rng.integers(0, n + 1, size=m - m // 2), rng.integers(high_from, n + 1, size=m // 2)]))
+    return torch.sort(torch.cat([special, torch.from_numpy(drawn).to(DEVICE)]))[0]
 
 
-def kernel_cases(torch, dev, rng, cases, launches: dict, seg_base=None) -> list[dict]:
+def kernel_cases(torch, dev, rng, cases, launches: dict, seg_base=None,
+                 high_from: int | None = None) -> list[dict]:
     """``cases``: (name, table, sigma, decode) on ``dev``'s keys, each with
-    its mode's count from ``launches`` (keyed by (mode, sigma))."""
-    keys = kernel_keys(torch, dev, rng)
+    its mode's count from ``launches`` (keyed by (mode, sigma)).
+    ``high_from``: see :func:`kernel_keys`."""
+    keys = kernel_keys(torch, dev, rng, high_from)
     out = []
     for name, table, sigma, decode in cases:
         payload = None if decode else torch.from_numpy(
@@ -754,35 +846,60 @@ def segmented_kernel_phase(torch, launches: dict) -> list[dict]:
     return out
 
 
-def synthetic_table(torch, g, rows: int, sigma: int):
+def synthetic_table(torch, g, rows: int, sigma: int, ckpt: tuple = (0, 2**31)):
     """A seeded random table of ``rows`` rows: every bit pattern in the
-    planes, checkpoints below 2^31 (what a local count can be)."""
+    planes, checkpoint values drawn from [ckpt[0], ckpt[1]) (below 2^31 by
+    default: what a local count can be) and stored as their 32-bit words."""
     from sview_fmindex_tpu_torch.ops import stream_join as sj
+    from sview_fmindex_tpu_torch.ops.rank import to_i32
 
     table = torch.randint(-2**31, 2**31, (rows, sj._rw(sigma)), generator=g,
                           device=DEVICE).to(torch.int32)
-    table[:, :sigma] = torch.randint(0, 2**31, (rows, sigma), generator=g,
-                                     device=DEVICE).to(torch.int32)
+    table[:, :sigma] = to_i32(torch.randint(*ckpt, (rows, sigma), generator=g, device=DEVICE))
     return table
 
 
 def hbm_kernel_phase(torch, by_sigma: dict) -> list[dict]:
-    """The main path's two modes on tables of the 1 Gbp deployment's size.
-    ``launches``: the main path's count of the same mode and sigma, the
-    kernel these cases time."""
-    from sview_fmindex_tpu_torch.ops import stream_join as sj
+    """The main path's two modes on tables of the 1 Gbp deployment's size."""
+    return synthetic_kernel_phase(
+        torch, SEED + 11, HBM_ROWS, (("join_rank_hbm", 16, False), ("join_decode_hbm", 4, True)),
+        by_sigma)
 
-    g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+
+def hi_ckpt_phase(torch, by_sigma: dict) -> list[dict]:
+    """The main path's two modes on narrow tables whose checkpoint words all
+    lie in HI_CKPT, 2^31 and above, as every table of an index between 2^31
+    and 2^32 bp holds past its middle: words that read negative as int32."""
+    return synthetic_kernel_phase(
+        torch, SEED + 16, HI_CKPT_ROWS,
+        (("join_rank_hi_ckpt", 16, False), ("join_decode_hi_ckpt", 4, True)), by_sigma, HI_CKPT)
+
+
+def synthetic_kernel_phase(torch, seed: int, rows: int, cases, by_sigma: dict,
+                           ckpt: tuple = (0, 2**31)) -> list[dict]:
+    """``cases``: (name, sigma, decode), each on a seeded synthetic table of
+    ``rows`` rows (checkpoints from ``ckpt``) at 2M sorted keys against its
+    plain version.  ``by_sigma``: the main path's launches, whose count of
+    the same mode and sigma is the kernel these cases time."""
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+    from sview_fmindex_tpu_torch.ops.rank import u32
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
     out = []
-    for name, sigma, decode in (("join_rank_hbm", 16, False), ("join_decode_hbm", 4, True)):
-        table = synthetic_table(torch, g, HBM_ROWS, sigma)
-        end = HBM_ROWS * sj.SBL
+    for name, sigma, decode in cases:
+        table = synthetic_table(torch, g, rows, sigma, ckpt)
+        words = u32(table[:, :sigma])
+        check(bool(((words >= ckpt[0]) & (words < ckpt[1])).all()),
+              f"{name}: checkpoint words outside {ckpt}")
+        del words
+        end = rows * sj.SBL
         special = torch.tensor([0, end - 1, end], device=DEVICE)
         keys = torch.sort(torch.cat([special, torch.randint(
             0, end + 1, (KERNEL_KEYS - special.shape[0],), generator=g, device=DEVICE)]))[0]
         payload = None if decode else torch.randint(0, sigma, (KERNEL_KEYS,), generator=g,
                                                     device=DEVICE)
-        log(f"[kernel] {name}: table {table.numel() * 4 / 2**30:.2f} GiB")
+        log(f"[kernel] {name}: table {table.numel() * 4 / 2**30:.2f} GiB, checkpoint words "
+            f"in [{ckpt[0]}, {ckpt[1]})")
         out.append(kernel_case(torch, name, table, keys, payload, sigma, decode,
                                by_sigma.get(("decode" if decode else "rank", sigma), 0)))
         del table
@@ -823,6 +940,40 @@ def ragged_phase(torch) -> None:
         sj.SEG_BLOCKS = old
     log(f"[kernel] ragged edges: {n} runs ({len(RAGGED_CASES)} key sets x 3 sigmas x 4 modes) "
         f"equal their plain version exactly")
+
+
+def unfilled_scan_phase(torch) -> None:
+    """The SA fill's unfilled-row scan (``build/sa_fill.unfilled_rows``) over
+    a seeded int32 tensor of SCAN_ENTRIES words, more than INT_MAX: random
+    words, a third of them with the high bit set, none -1 but the
+    SCAN_PLANTED planted ones (the first and last rows and both sides of
+    2^31 among them); it must return exactly the planted rows."""
+    from sview_fmindex_tpu_torch.build.sa_fill import unfilled_rows
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    words = torch.empty(SCAN_ENTRIES, dtype=torch.int32, device=DEVICE)
+    piece = 1 << 28
+    for a in range(0, SCAN_ENTRIES, piece):
+        w = words[a:a + piece]
+        w.random_(0, 2**31 - 1, generator=g)  # [0, 2^31 - 2]
+        w[::3] ^= -2**31  # [-2^31, -2]: the high bit set, never -1
+    rng = np.random.default_rng(SEED + 17)
+    special = np.array([0, NARROW_HIGH - 1, NARROW_HIGH, SCAN_ENTRIES - 1])
+    rest = np.setdiff1d(np.unique(rng.integers(0, SCAN_ENTRIES, 2 * SCAN_PLANTED)), special)
+    planted = np.sort(np.concatenate([special, rng.permutation(rest)[:SCAN_PLANTED - 4]]))
+    words[torch.from_numpy(planted).to(DEVICE)] = -1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = unfilled_rows(words)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(np.array_equal(rows.cpu().numpy(), planted),
+          f"the unfilled-row scan found {rows.shape[0]} rows, not the {planted.size} planted")
+    log(f"[kernel] unfilled-row scan over {SCAN_ENTRIES} int32 words "
+        f"({SCAN_ENTRIES * 4 / 2**30:.2f} GiB): exactly the {planted.size} planted rows "
+        f"({int((planted >= NARROW_HIGH).sum())} of them at or above 2^31) in {secs:.3f} s")
+    del words, rows
+    torch.cuda.empty_cache()
 
 
 def narrow_phase(torch, ft, tag: str, text, alphabet: str, batches: list, engine: str,
@@ -1571,24 +1722,29 @@ def two_rank_phase(ft) -> None:
     log(f"[par2] both ranks done in {time.monotonic() - t0:.1f} s")
 
 
-def build_wide_main() -> None:
-    """The child of phase 13 (``chip_smoke.py --build-wide``): the text and
-    its u64 blob over WIDE_TEXT_SIZE bp, cached under ``bench_cache/``.
-    Prints when each build pass starts and how long it took, and its own
-    peak RSS before the build (the package import) and after."""
+def build_main(position: str) -> None:
+    """The build child of phase 13 (``chip_smoke.py --build-wide``: a u64
+    blob over WIDE_TEXT_SIZE bp) or phase 15 (``--build-narrow``: a u32 blob
+    over NARROW_TEXT_SIZE bp): the text and its blob, cached under
+    ``bench_cache/``.  Prints when each build pass starts and how long it
+    took, and its own peak RSS before the build (the package import) and
+    after each pass."""
     import resource
 
     import sview_fmindex_tpu_torch as ft
     from sview_fmindex_tpu_torch.build import bwm, bwt, count_array
+
+    size, tag = ((WIDE_TEXT_SIZE, "wide_build") if position == "u64"
+                 else (NARROW_TEXT_SIZE, "narrow_build"))
 
     def timed(mod, name):
         fn = getattr(mod, name)
 
         def wrapper(*args, **kwargs):
             t0 = time.perf_counter()
-            log(f"[wide_build] {name} starts at {time.time() - T_START:.0f} s")
+            log(f"[{tag}] {name} starts at {time.time() - T_START:.0f} s")
             out = fn(*args, **kwargs)
-            log(f"[wide_build] {name}: {time.perf_counter() - t0:.1f} s, peak RSS so far "
+            log(f"[{tag}] {name}: {time.perf_counter() - t0:.1f} s, peak RSS so far "
                 f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB")
             return out
         setattr(mod, name, wrapper)
@@ -1598,33 +1754,47 @@ def build_wide_main() -> None:
                       (bwm, "write_bwm_body")):
         timed(mod, name)
     t0 = time.perf_counter()
-    text = get_text(WIDE_TEXT_SIZE)
-    log(f"[wide_build] text of {WIDE_TEXT_SIZE} bp ready in {time.perf_counter() - t0:.1f} s; "
+    text = get_text(size)
+    log(f"[{tag}] text of {size} bp ready in {time.perf_counter() - t0:.1f} s; "
         f"peak RSS before the build {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
         f" GiB")
-    get_blob(ft, text, position="u64")
+    get_blob(ft, text, position=position)
 
 
-def start_wide_build():
-    """Phase 13's build, started before phase 3 so that it runs beside the
-    earlier phases: a child process of this script."""
-    check(WIDE_TEXT_SIZE > 2**32 + 2**20, "SMOKE_WIDE_TEXT_SIZE must exceed 2^32")
-    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--build-wide"],
-                            cwd=REPO_DIR)
+def opt_in_sizes(narrow: int, wide: int) -> None:
+    """Refuse an opt-in text outside its range (phase 15's narrow one inside
+    NARROW_RANGE, phase 13's above 2^32), and both in one run: their two
+    builds do not fit one host together."""
+    if narrow:
+        check(NARROW_RANGE[0] < narrow < NARROW_RANGE[1],
+              f"SMOKE_NARROW_TEXT_SIZE must lie in (2^31 + 2^20, 2^32 - 2^20), not {narrow}")
+        check(not wide, "SMOKE_NARROW_TEXT_SIZE and SMOKE_WIDE_TEXT_SIZE cannot share a run: "
+              "their two builds do not fit one host together")
+    if wide:
+        check(wide > 2**32 + 2**20, "SMOKE_WIDE_TEXT_SIZE must exceed 2^32")
 
 
-def wait_wide_build(proc) -> None:
-    """Wait for the build child; its peak RSS is its ``ru_maxrss`` from
+def start_build(position: str):
+    """An opt-in phase's build (``u64``: phase 13, ``u32``: phase 15),
+    started before phase 3 so that it runs beside the earlier phases: a child
+    process of this script."""
+    flag = "--build-wide" if position == "u64" else "--build-narrow"
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), flag], cwd=REPO_DIR)
+
+
+def wait_build(proc, size: int, tag: str) -> None:
+    """Wait for a build child; its peak RSS is its ``ru_maxrss`` from
     ``os.wait4``: the ``getrusage(RUSAGE_CHILDREN)`` figure of that child
     alone (other children of this script run beside it)."""
     t0 = time.perf_counter()
     _, status, ru = os.wait4(proc.pid, 0)
     proc.returncode = os.waitstatus_to_exitcode(status)
     peak = ru.ru_maxrss * 1024
-    log(f"[wide_text] build child exited {proc.returncode} after {time.perf_counter() - t0:.1f} s "
-        f"of waiting; its peak RSS {peak / 2**30:.2f} GiB = {peak / WIDE_TEXT_SIZE:.2f} B/bp "
-        f"(the mapped text and blob pages it touched included)")
-    check(proc.returncode == 0, f"the u64 build child exited {proc.returncode}")
+    log(f"[{tag}] build child exited {proc.returncode} after {time.perf_counter() - t0:.1f} s "
+        f"of waiting, {time.time() - T_START:.0f} s after the start; its peak RSS "
+        f"{peak / 2**30:.2f} GiB = {peak / size:.2f} B/bp (the mapped text and blob pages it "
+        f"touched included)")
+    check(proc.returncode == 0, f"the {tag} build child exited {proc.returncode}")
 
 
 def find_all(mm, pat: bytes) -> list[int]:
@@ -1636,15 +1806,44 @@ def find_all(mm, pat: bytes) -> list[int]:
     return out
 
 
+def scan_text(text, pats, tag: str, above: int) -> list[list[int]]:
+    """Every position of each pattern (uint8 [P, L]) in the raw text, by
+    scanning the mapped file: an oracle that reads no table of the index."""
+    import mmap
+
+    t0 = time.perf_counter()
+    with open(text.filename, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+        scan = [find_all(mm, p.tobytes()) for p in pats]
+    log(f"[{tag}] {len(scan)} patterns scanned for in the raw text in "
+        f"{time.perf_counter() - t0:.1f} s: {sum(map(len, scan))} positions, "
+        f"{sum(p >= above for v in scan for p in v)} at or above 2^{above.bit_length() - 1}")
+    return scan
+
+
+def scan_check(torch, dev, tag: str, pats, scan: list) -> None:
+    """``dev``'s counts and locations of ``pats`` (through the stream
+    engine) equal the raw-text scan's."""
+    q = torch.from_numpy(np.ascontiguousarray(pats)).to(DEVICE)
+    counts = dev.count(q, use_stream=True).cpu().numpy()
+    locs, pids, valid, dropped = dev.locate(q, use_stream=True)
+    check(int(dropped[0]) == 0, "the scan patterns dropped hits")
+    got = [[] for _ in scan]
+    for loc, p in zip(locs[valid].cpu().numpy(), pids[valid].cpu().numpy()):
+        got[int(p)].append(int(loc))
+    for j, want in enumerate(scan):
+        check(int(counts[j]) == len(want) and sorted(got[j]) == want,
+              f"{tag}: pattern {j} differs from the scan of the text")
+    log(f"[{tag}] the counts and locations of the {len(scan)} patterns equal the scan")
+
+
 def wide_text_phase(torch, ft, build) -> list[dict]:
     """Phase 13: the u64 blob over WIDE_TEXT_SIZE bp (built by ``build``, the
     child process), served without force_wide by the wide engine and by
     ``tools/torch_wide_scale_check.py``; 16 of the tool's patterns held
     against a scan of the raw text by both."""
     import importlib.util
-    import mmap
 
-    wait_wide_build(build)
+    wait_build(build, WIDE_TEXT_SIZE, "wide_text")
     text = get_text(WIDE_TEXT_SIZE)
     t0 = time.perf_counter()
     fm = get_blob(ft, text, position="u64")
@@ -1667,33 +1866,15 @@ def wide_text_phase(torch, ft, build) -> list[dict]:
     n_pats = 256
     starts, pats = tool.draw_patterns(text, n_pats, PATTERN_LEN, 123)
     picked = [*range(8), *range(n_pats // 2, n_pats // 2 + 8)]  # 8 below 2^32, 8 above
-    t0 = time.perf_counter()
-    with open(text.filename, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
-        scan = {i: find_all(mm, pats[i].tobytes()) for i in picked}
-    log(f"[wide_text] {len(picked)} of the scale check's patterns scanned for in the raw text "
-        f"in {time.perf_counter() - t0:.1f} s: {sum(map(len, scan.values()))} positions, "
-        f"{sum(p >= 2**32 for v in scan.values() for p in v)} at or above 2^32")
-
-    def against_scan(dev) -> None:
-        q = torch.from_numpy(pats[picked]).to(DEVICE)
-        counts = dev.count(q, use_stream=True).cpu().numpy()
-        locs, pids, valid, dropped = dev.locate(q, use_stream=True)
-        check(int(dropped[0]) == 0, "the scan patterns dropped hits")
-        got = {i: [] for i in picked}
-        for loc, p in zip(locs[valid].cpu().numpy(), pids[valid].cpu().numpy()):
-            got[picked[int(p)]].append(int(loc))
-        for j, i in enumerate(picked):
-            check(int(counts[j]) == len(scan[i]) and sorted(got[i]) == scan[i],
-                  f"wide engine: pattern {i} differs from the scan of the text")
-        log(f"[wide_text] the wide engine's counts and locations of the {len(picked)} "
-            f"patterns equal the scan")
+    scan = dict(zip(picked, scan_text(text, pats[picked], "wide_text", 2**32)))
 
     sigma = fm.symbol_count
     _, kernels = wide_checks(
         torch, ft, fm, text, "wide_text", batches,
         kernel_cases_of=lambda dev: [("join_rank_seg_u64", dev.stream_tbl, sigma, False),
                                      ("join_decode_seg_u64", dev.stream_tbl, sigma, True)],
-        on_index=against_scan)
+        on_index=lambda dev: scan_check(torch, dev, "wide_text", pats[picked],
+                                        [scan[i] for i in picked]))
     del fm
     torch.cuda.empty_cache()
 
@@ -1720,17 +1901,100 @@ def wide_text_phase(torch, ft, build) -> list[dict]:
     return kernels
 
 
+def narrow_text_phase(torch, ft, build) -> list[dict]:
+    """Phase 15: the u32 blob over NARROW_TEXT_SIZE bp, between 2^31 and
+    2^32 (built by ``build``, the child process), uploaded as the bench
+    uploads it and served by the narrow engine, its tables' words past 2^31
+    negative as int32: the SA fill against the blob and the raw text, the
+    batches with half their starts above 2^31, 16 patterns against a scan of
+    the raw text, the kernel on the real tables, then the walk upload."""
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    size = NARROW_TEXT_SIZE
+    wait_build(build, size, "narrow_text")
+    text = get_text(size)
+    t0 = time.perf_counter()
+    fm = get_blob(ft, text)
+    log(f"[narrow_text] text {size} bp, u32 blob ready in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 14)
+    batches = {}
+    for B in BATCHES:  # half the patterns start above 2^31
+        starts = np.concatenate([rng.integers(0, size - PATTERN_LEN, size=B // 2),
+                                 rng.integers(NARROW_HIGH, size - PATTERN_LEN, size=B - B // 2)])
+        batches[B] = dict(pats=np.ascontiguousarray(text[starts[:, None] + np.arange(PATTERN_LEN)]))
+    starts = np.concatenate([rng.integers(0, NARROW_HIGH, size=8),
+                             rng.integers(NARROW_HIGH, size - PATTERN_LEN, size=8)])
+    scan_pats = np.ascontiguousarray(text[starts[:, None] + np.arange(PATTERN_LEN)])
+    scan = scan_text(text, scan_pats, "narrow_text", NARROW_HIGH)
+
+    sj.LAUNCHES.clear()
+    sj.LAUNCHES_BY_SIGMA.clear()
+    dev = upload(torch, ft, fm, "narrow_text", **bench_torch.UPLOAD_KW)
+    check(not dev.meta.wide_pos and dev.meta.has_sa_full and dev.meta.pair_rows > 0,
+          "the narrow text did not upload to the narrow engine with the full SA and pair table")
+    sa_fill_check(torch, fm, dev, "narrow_text")
+    sa_order_check(torch, dev, text, "narrow_text", rng)
+    for B, want in batches.items():
+        counts, sets, out, _ = run_batch(torch, fm, dev, text, "narrow_text", want["pats"],
+                                         "pair-stream")
+        want.update(counts=counts, sets=sets)
+        locs, _, valid = out[:3]
+        lo, hi = dev.pos_ranges(torch.from_numpy(want["pats"]).to(DEVICE), use_stream=True)
+        above = int((locs[valid] >= NARROW_HIGH).sum())
+        lo_hi, hi_hi = int((lo >= NARROW_HIGH).sum()), int((hi >= NARROW_HIGH).sum())
+        log(f"[narrow_text] B={B}: {above} of {int(valid.sum())} located positions, {lo_hi} lo "
+            f"and {hi_hi} hi rows of {B} ranges at or above 2^31")
+        check(above > 0 and lo_hi > 0 and hi_hi > 0,
+              "no located position or range row at or above 2^31")
+    scan_check(torch, dev, "narrow_text", scan_pats, scan)
+    by_sigma = dict(sj.LAUNCHES_BY_SIGMA)
+    log(f"[narrow_text] kernel launches: {dict(sj.LAUNCHES)}; by (mode, sigma): {by_sigma}")
+    check(by_sigma.get(("rank", 16), 0) > 0, "the pair chain never launched rank@16")
+    check(by_sigma.get(("decode", 4), 0) > 0, "the SA fill never launched decode@4")
+    check(not sj.LAUNCHES.get("rank_seg") and not sj.LAUNCHES.get("decode_seg"),
+          "a narrow index launched a segmented join mode")
+    kernels = kernel_cases(
+        torch, dev, np.random.default_rng(SEED + 15),
+        [("join_rank_pair_narrow_hi", dev.pair_tbl, 16, False),
+         ("join_decode_narrow_hi", dev.stream_tbl, 4, True)], by_sigma, high_from=NARROW_HIGH)
+    del dev
+    torch.cuda.empty_cache()
+
+    # the walk: the sampled SA and the stream-decode LF walk
+    sj.LAUNCHES.clear()
+    sj.LAUNCHES_BY_SIGMA.clear()
+    dev = upload(torch, ft, fm, "narrow_walk", dense_lut_entries=1 << 28,
+                 dense_host_entries=1 << 20)
+    check(not dev.meta.wide_pos and not dev.meta.has_sa_full,
+          "the walk upload is not narrow with the sampled SA")
+    want = batches[WALK_BATCH]
+    counts, sets, _, _ = run_batch(torch, fm, dev, text, "narrow_walk", want["pats"],
+                                   "pair-stream")
+    check(np.array_equal(counts, want["counts"]), "walk counts != the full-SA upload's")
+    check(np.array_equal(sets, want["sets"]), "walk location sets != the full-SA upload's")
+    walk_decodes = sj.LAUNCHES_BY_SIGMA[("decode", 4)]
+    log(f"[narrow_walk] B={WALK_BATCH}: counts and location sets equal the full-SA upload's; "
+        f"kernel launches by (mode, sigma): {dict(sj.LAUNCHES_BY_SIGMA)}")
+    check(walk_decodes > 0, "the walk never launched decode@4")
+    kernels[1]["launches"] += walk_decodes
+    del dev
+    torch.cuda.empty_cache()
+    return kernels
+
+
 def main() -> None:
     import torch
 
+    opt_in_sizes(NARROW_TEXT_SIZE, WIDE_TEXT_SIZE)
     smi = device_phase(torch)
-    wide_build = start_wide_build() if WIDE_TEXT_SIZE else None
+    build = (start_build("u64") if WIDE_TEXT_SIZE
+             else start_build("u32") if NARROW_TEXT_SIZE else None)
     try:
-        kernels = smoke(torch, wide_build)
+        kernels = smoke(torch, build)
     finally:
-        if wide_build is not None and wide_build.returncode is None:
-            wide_build.kill()
-            wide_build.wait()
+        if build is not None and build.returncode is None:
+            build.kill()
+            build.wait()
     check("jax" not in sys.modules, "the port imported JAX")
     check("sview_fmindex_tpu" not in sys.modules, "the port imported the JAX package")
     log(f"[done] {time.time() - T_START:.1f} s")
@@ -1741,8 +2005,9 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def smoke(torch, wide_build) -> list[dict]:
-    """Phases 2-14; returns the kernel summary."""
+def smoke(torch, build) -> list[dict]:
+    """Phases 2-15; returns the kernel summary.  ``build``: the child
+    building the opt-in text's blob (phase 13 or 15), or None."""
     import sview_fmindex_tpu_torch as ft
 
     build_phase()
@@ -1756,6 +2021,8 @@ def smoke(torch, wide_build) -> list[dict]:
     walk_phase(torch, ft, fm, text, main_res)
     kernels += segmented_kernel_phase(torch, wide_launches)
     kernels += hbm_kernel_phase(torch, main_res["by_sigma"])
+    kernels += hi_ckpt_phase(torch, main_res["by_sigma"])
+    unfilled_scan_phase(torch)
     ragged_phase(torch)
     dense_k = main_res["dense_k"]
     del main_res, fm, text
@@ -1767,8 +2034,10 @@ def smoke(torch, wide_build) -> list[dict]:
     torch.cuda.empty_cache()
     card_suite_phase()
     two_rank_phase(ft)
-    if wide_build is not None:
-        kernels += wide_text_phase(torch, ft, wide_build)
+    if WIDE_TEXT_SIZE:
+        kernels += wide_text_phase(torch, ft, build)
+    elif NARROW_TEXT_SIZE:
+        kernels += narrow_text_phase(torch, ft, build)
     return kernels
 
 
@@ -1776,6 +2045,8 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--rank":
         rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:] == ["--build-wide"]:
-        build_wide_main()
+        build_main("u64")
+    elif sys.argv[1:] == ["--build-narrow"]:
+        build_main("u32")
     else:
         main()

@@ -24,16 +24,30 @@ from ..ops.rank import pre_rank_and_symidx, pre_rank_and_symidx_from_rows, to_i3
 
 UNFILLED = 0xFFFFFFFF  # uint32 pattern of an unfilled row (SA values are < n < 2^32)
 _WRAP_BOUND = 1 << 16
+# entries per piece of the whole-SA passes: no int64 copy of the SA and no
+# single call over more than INT_MAX entries (CUDA's nonzero refuses those)
+_PIECE = 1 << 28
 
 
 def _seed(sa_up: torch.Tensor, n: int, R: int):
     """Output SA (int32 [n]) with the known rows written, and the chain
-    heads (rows, values; int64)."""
-    known = torch.arange(sa_up.shape[0], device=sa_up.device) * R
+    heads (rows, values; int64).  The known rows are written a piece of
+    chains at a time."""
     # -1 is UNFILLED's int32 bit pattern
     out = torch.full((n,), -1, dtype=torch.int32, device=sa_up.device)
-    out[known] = to_i32(sa_up)
+    for a in range(0, sa_up.shape[0], _PIECE):
+        vals = sa_up[a:a + _PIECE]
+        out[a * R:(a + vals.shape[0]) * R:R] = to_i32(vals)
+    known = torch.arange(sa_up.shape[0], device=sa_up.device) * R
     return out, known, sa_up
+
+
+def unfilled_rows(out: torch.Tensor) -> torch.Tensor:
+    """Rows (int64) of the int32 SA ``out`` that hold UNFILLED: its words
+    compared with -1, UNFILLED's bit pattern, a piece at a time."""
+    return torch.cat([torch.nonzero(out[a:a + _PIECE] == -1)[:, 0] + a
+                      for a in range(0, out.shape[0], _PIECE)]
+                     or [torch.zeros(0, dtype=torch.int64, device=out.device)])
 
 
 def _decode_sorted(meta, fused, stream_tbl, key: torch.Tensor):
@@ -75,7 +89,7 @@ def fill_sa_full_device(meta, fused, count_arr, sentinel: int, sa_up: torch.Tens
 def _pull_wrap(meta, fused, count_arr, sentinel, out, limit: int):
     """Resolve the unfilled wrap-segment rows by walking LF to a filled row."""
     n = out.shape[0]
-    rows = torch.nonzero(u32(out) == UNFILLED)[:, 0]
+    rows = unfilled_rows(out)
     if rows.shape[0] >= _WRAP_BOUND:
         raise RuntimeError(
             f"sa fill: {rows.shape[0]} unfilled rows exceed the wrap-"

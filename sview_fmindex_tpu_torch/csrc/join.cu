@@ -270,8 +270,9 @@ __global__ void __launch_bounds__(kThreads) join_kernel(const JoinArgs a) {
   } else if (DECODE) {
     ckpt = sym < a.sigma ? __ldg(ckpt_words + sym) : 0u;
   }
-  // ckpt + cnt is a local checkpoint (below 2^31) plus at most 128, so the
-  // u32 sum is exact
+  // the u32 sum ckpt + cnt is exact: on a narrow table the checkpoint may
+  // reach 2^32 - 1, but the sum is a rank, at most n < 2^32; a segmented
+  // table's checkpoint is local, below 2^31, plus at most 128
   int64_t rank = static_cast<int64_t>(ckpt + count_before<P>(w, sym, rem));
   if (SEGMENTED && sym < a.sigma) rank += a.seg_base[(blk >> a.seg_shift) * a.sigma + sym];
   __stcs(a.rank_out + i, rank);

@@ -8,6 +8,7 @@ encoder, k and r.  Each configuration is uploaded narrow with every option
 of ``DeviceFmIndex.from_host`` (:data:`NARROW_VARIANTS`) and with
 ``force_wide`` (:data:`WIDE_VARIANTS`; 2-64 block segments, so the wide table
 spans several), once to the card with no device named and once to the CPU.
+Seven combinations of options (:data:`COMBOS`) run on two configurations.
 Each case holds:
 
 - the state: every tensor of the card upload equals the CPU upload's;
@@ -74,6 +75,20 @@ NARROW_VARIANTS = {
     "cached": (dict(dense_lut_cache=None, derived_cache_dir=None, ckpt_derive=False),
                lambda s: True),
 }
+# options set together, each on COMBO_CONFIGS only (the card suite's time
+# is bounded): ``sa_full=None`` stands for the full SA as a given array
+COMBOS = {
+    "pair_gather_sa_device": dict(pair_gather=True, sa_full="device", sa_fill_ratio=1),
+    "pair_gather_no_dense": dict(pair_gather=True, dense_lut_entries=0),
+    "pair_gather_sa_array": dict(pair_gather=True, sa_full=None, ckpt_derive=True),
+    "no_stream_sa_device": dict(stream=False, sa_full="device"),
+    "no_pair_host_stream_sa_device": dict(pair=False, stream_derive=False, sa_full="device",
+                                          sa_fill_ratio=3),
+    "no_dense_sa_array_no_stream": dict(dense_lut_entries=0, sa_full=None, stream=False),
+    "host_stream_ckpt_sa_device": dict(stream_derive=False, ckpt_derive=True, sa_full="device"),
+}
+# the main path's configuration and wildcard DNA: both have pair tables
+COMBO_CONFIGS = ("seeded-dna_b3u64_k3r2", "seeded-wild_b3u64_k3r2")
 # the wide upload takes only ``stream`` and the dense seed's size
 WIDE_VARIANTS = {
     "default": ({}, lambda s: True),
@@ -103,6 +118,8 @@ def _params():
                                        or (wide, name) in CORPUS_VARIANTS):
                     out.append(pytest.param(cfg, wide, name,
                                             id=f"{cfg}-{'wide' if wide else 'narrow'}-{name}"))
+    out += [pytest.param(cfg, False, name, id=f"{cfg}-narrow-{name}")
+            for cfg in COMBO_CONFIGS for name in COMBOS]
     return out
 
 
@@ -281,6 +298,11 @@ def _config(cfg_id: str, built: dict) -> dict:
 
 
 def _variant_kwargs(cfg: dict, wide: bool, variant: str, tmp_path) -> dict:
+    if variant in COMBOS:
+        kw = dict(COMBOS[variant])
+        if "sa_full" in kw and kw["sa_full"] is None:
+            kw["sa_full"] = np.fromfile(cfg["sa_path"], dtype="<u4")
+        return kw
     kw = dict((WIDE_VARIANTS if wide else NARROW_VARIANTS)[variant][0])
     fm = cfg["fm"]
     sigma, k = fm.symbol_count, fm.kmer_size
@@ -455,3 +477,9 @@ def test_matrix_covers_every_case_and_upload_option():
     sigmas = {c["symbol_count"] for c in CASES.values()}
     for name, (_, applies) in NARROW_VARIANTS.items():
         assert any(applies(s) for s in sigmas), name
+    # every combination of options on both of its configurations, whose
+    # alphabets have pair tables; each sets keywords of ``from_host``
+    for cfg in COMBO_CONFIGS:
+        assert CASES[cfg.split("-", 1)[1]]["symbol_count"] ** 2 <= sj.MAX_SIGMA
+        for name, kw in COMBOS.items():
+            assert f"{cfg}-narrow-{name}" in ids and set(kw) <= keywords
