@@ -20,10 +20,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 2. build: compiles the join kernel from ``sview_fmindex_tpu_torch/csrc``;
    no instantiation may spill registers.
 3. main path: blob (native SA-IS, cached under ``bench_cache/``), upload
-   (seconds per phase), the filled SA checked against the blob's sampled SA,
-   then per batch: counts, locate, ``dropped == 0``, 200 locations against
-   the raw text, the gather-engine parity gate, 1000 patterns against the
-   host ``FmIndex``, and queries/s from CUDA events (best and worst of 5
+   (seconds per phase), the filled SA checked against the blob's sampled SA
+   and against a second fill from the same tables in slices of 2^20 chains
+   (12 slices at 1e8 bp; the upload's 2^26-chain slice holds all 12.5M), equal
+   tensor for tensor (seconds and device peak of both printed), then per
+   batch: counts, locate, ``dropped == 0``, 200 locations against the raw
+   text, the gather-engine parity gate, 1000 patterns against the host
+   ``FmIndex``, and queries/s from CUDA events (best and worst of 5
    windows).  The kernel launch counters are zeroed just before the upload
    and read just after the last query: both join modes must have launched.
 4. kernel: the join kernel against its plain-torch version on the main
@@ -53,7 +56,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    1 GiB) and ``join_decode_hbm`` (sigma 4, 2^23 rows), 2M sorted keys each;
    the same two modes on 2^22-row tables whose checkpoint words all lie in
    [2^31, 2^32 - 2^24) (``join_rank_hi_ckpt``, ``join_decode_hi_ckpt``), as
-   the tables of a narrow index between 2^31 and 2^32 bp hold them; and the
+   the tables of a narrow index between 2^31 and 2^32 bp hold them, and in
+   [2^32 - 2^24, 2^32 - 2^8) (``join_rank_top_ckpt``, ``join_decode_top_ckpt``:
+   the top of the u32 word, which no real uniform text reaches); and the
    SA fill's unfilled-row scan over 2^31 + 2^20 int32 words (8.6 GB), which
    must return exactly its 1000 planted rows.  Then the ragged-edge key sets of ``bench/join_cases.py`` (key counts off
    the warp and block size, keys outside the table inside a warp, one row
@@ -162,28 +167,38 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    through an engine.  Prints a ``{"card_suite": ...}`` line: the counts,
    seconds per file and the matrix's launches by mode and ``mode@sigma``.
 
-15. opt-in, with ``SMOKE_NARROW_TEXT_SIZE`` (in (2^31 + 2^20, 2^32 - 2^20);
-   3.1e9, a human genome, is the headline deployment's size; not in one run
-   with phase 13): a u32 blob at the main path's configuration over that
-   many bp (the shared seed-42 text), built by a child process that starts
-   before phase 3, as phase 13's, with per-pass times and its peak RSS.
+15. opt-in, with ``SMOKE_NARROW_TEXT_SIZE`` (in (2^31 + 2^20, 2^32); 3.1e9,
+   a human genome, is the headline deployment's size, 4294967295 the largest
+   u32 blob; not in one run with phase 13): a u32 blob at the main path's
+   configuration over that many bp (the shared seed-42 text), built by a
+   child process that starts before phase 3, as phase 13's, with per-pass
+   times and its peak RSS.
    Uploaded as ``bench_torch.py`` uploads (``UPLOAD_KW``, no
    ``force_wide``): it must stay narrow; seconds and device peak per upload
-   phase.  The filled SA equals the blob's at every sampled row (in pieces),
-   and 100k random adjacent rows hold their suffixes in strict order read
-   from the raw text.  B=100k and 1M (half the starts above 2^31) through
-   the pair-stream engine with the main path's checks, rates on both
-   clocks; located positions and range rows at and above 2^31 counted (some
-   must be); 16 patterns (8 above 2^31) against a scan of the raw text;
+   phase.  The SA fill ran in slices of ``build/sa_fill._FILL_CHAINS`` chains
+   (its slices, live width and rounds printed), and its phase's device peak
+   stays within ``sa_fill.fill_budget`` (the int32 SA plus one slice at
+   ``CHAIN_BYTES`` a chain) above the memory resident before it.  The filled
+   SA equals the blob's at every sampled row (in pieces), and 100k random
+   adjacent rows hold their suffixes in strict order read from the raw text.
+   B=100k and 1M (half the starts above 2^31) through the pair-stream engine
+   with the main path's checks, rates on both clocks; located positions and
+   range rows at and above 2^31 counted (some must be); 16 patterns (8 above
+   2^31) against a scan of the raw text; the dense seed of T^dense_k, whose
+   range ends at n, and a 20-bp pattern starting with it, against the scan;
    ``join_rank_pair_narrow_hi`` and ``join_decode_narrow_hi`` against their
-   plain version on the real tables, half the keys above 2^31.  Then the
-   card is freed and the blob goes up again with its sampled SA: B=100k
-   through the stream-decode walk must answer as the full-SA upload did.
+   plain version on the real tables, half the keys above 2^31.  At sizes of
+   2^32 - 2^24 and more, also: positions and range rows at or above 2^32 -
+   2^24 counted (some must be), 4 of the 8 high scan patterns start there,
+   and a third of the kernel keys lie in [n - 2^20, n].  Then the card is
+   freed and the blob goes up again with its sampled SA: B=100k through the
+   stream-decode walk must answer as the full-SA upload did.
 
 No earlier phase was cut in depth to make room for later ones: on an NVIDIA
 H100 80GB HBM3 (700 W) phase 12 takes 70-235 s, phase 14 100-165 s, and
-the whole 575-705 s, by how fast the host is; with phase 15 at 3.1e9 bp,
-1062-1284 s (its build child alone 883-1094 s).
+the whole 469-705 s, by how fast the host is; with phase 15 at 3.1e9 bp,
+1062-1284 s (its build child alone 883-1094 s), at 2^32 - 1 bp 1414-1483 s
+(the build child 1158-1230 s, 63.05 GiB of host memory).
 
 The last lines are the kernel summary (JSON: per kernel its launches on the
 main path, its time, the plain version's, and ``bound_ms``, the least time
@@ -245,11 +260,21 @@ HBM_ROWS = 1 << 23  # the tables of a 1 Gbp index: 2^30 positions / 128
 # words of 2^31 and more: synthetic ones, 2^22 rows, in the default run
 HI_CKPT_ROWS = 1 << 22
 HI_CKPT = (2**31, 2**32 - 2**24)
+# and, up to the largest word whose sum with a block's 128 positions still
+# fits u32, the words no real uniform text reaches (they stay under ~n/4)
+TOP_CKPT = (2**32 - 2**24, 2**32 - 2**8)
+# phase 3's second fill of the main index, in slices of this many chains
+GUARD_CHAINS = 1 << 20
 # the SA fill's unfilled-row scan over more than INT_MAX words, 1000 planted
 SCAN_ENTRIES, SCAN_PLANTED = 2**31 + 2**20, 1000
-# phase 15: the opt-in narrow text lies in this open interval
-NARROW_RANGE = (2**31 + 2**20, 2**32 - 2**20)
+# phase 15: the opt-in narrow text lies in this open interval (2^32: the
+# u32 blob's own limit)
+NARROW_RANGE = (2**31 + 2**20, 2**32)
 NARROW_HIGH = 2**31  # where a narrow table's words turn negative as int32
+# at or above this size phase 15 also holds the values only the top of the
+# u32 range has: keys, positions and rows at or above it
+NARROW_TOP = 2**32 - 2**24
+NARROW_TOP_KEYS = 2**20  # there the real-table kernel cases also draw from [n - this, n]
 N_ORDER_PAIRS = 100_000  # adjacent SA rows whose suffixes are held in order
 SA_CHECK_PIECE = 1 << 26  # sampled SA rows per piece of the SA fill check
 RAGGED_ROWS, RAGGED_SEG_ROWS = 40, 8
@@ -464,10 +489,10 @@ def check_batch(torch, fm, dev, text, pats_np, lens, patterns, counts, out) -> N
 
 
 @contextlib.contextmanager
-def phase_peaks(torch, peaks: dict):
+def phase_peaks(torch, peaks: dict, resident: dict):
     """Device peak memory per upload phase, into ``peaks``: at each phase
     end of ``DeviceFmIndex.from_host`` (``_PhaseClock``) torch's peak
-    counter is read and reset."""
+    counter is read and reset; ``resident``: the memory allocated then."""
     from sview_fmindex_tpu_torch.models import device_index
 
     real = device_index._PhaseClock.__call__
@@ -475,6 +500,7 @@ def phase_peaks(torch, peaks: dict):
     def call(clock, label):
         real(clock, label)
         peaks[label] = torch.cuda.max_memory_allocated()
+        resident[label] = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
 
     device_index._PhaseClock.__call__ = call
@@ -484,12 +510,13 @@ def phase_peaks(torch, peaks: dict):
         device_index._PhaseClock.__call__ = real
 
 
-def upload(torch, ft, fm, tag: str, **kwargs):
-    """Upload and log seconds and device peak memory per phase."""
+def upload(torch, ft, fm, tag: str, mem: dict | None = None, **kwargs):
+    """Upload and log seconds and device peak memory per phase.  ``mem``:
+    receives ``peaks`` and ``resident`` (bytes at each phase end) by phase."""
     torch.cuda.reset_peak_memory_stats()
-    peaks = {}
+    peaks, resident = {}, {}
     t0 = time.perf_counter()
-    with phase_peaks(torch, peaks):
+    with phase_peaks(torch, peaks, resident):
         dev = ft.to_device_torch(fm, **kwargs)  # no device named: the card
     check(dev.device.type == DEVICE, f"the default upload landed on {dev.device}")
     torch.cuda.synchronize()
@@ -501,6 +528,8 @@ def upload(torch, ft, fm, tag: str, **kwargs):
         f"dense_k={dev.meta.dense_k}, pair={dev.meta.pair_rows > 0}, "
         f"sa_full={dev.meta.has_sa_full}; resident "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB")
+    if mem is not None:
+        mem.update(peaks=peaks, resident=resident)
     return dev
 
 
@@ -557,6 +586,50 @@ def sa_fill_check(torch, fm, dev, tag: str) -> None:
     log(f"[{tag}] SA fill check: {m} sampled rows OK")
 
 
+def sliced_fill_check(torch, fm, dev, ratio: int) -> None:
+    """The main index's SA filled again from the same tables, unsliced and
+    in slices of GUARD_CHAINS chains: both equal the upload's SA tensor for
+    tensor; seconds and device peak above the resident memory of each.  The
+    join launches of these fills are not the main path's: the counters are
+    put back as they were."""
+    from sview_fmindex_tpu_torch.build import sa_fill
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    saved = collections.Counter(sj.LAUNCHES), collections.Counter(sj.LAUNCHES_BY_SIGMA)
+    sa_up = torch.from_numpy(fm.suffix_array[::ratio].astype(np.int64)).to(DEVICE)
+    R = fm.sampling_ratio * ratio
+    old = sa_fill._FILL_CHAINS
+    line = []
+    try:
+        for label, chains in (("unsliced", old), ("sliced", GUARD_CHAINS)):
+            sa_fill._FILL_CHAINS = chains
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sa = sa_fill.fill_sa_full_device(dev.meta, dev.fused, dev.count_arr, dev.sentinel,
+                                             sa_up, fm.text_len, R, stream_tbl=dev.stream_tbl)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            stats = dict(sa_fill.STATS)
+            check(torch.equal(sa, dev.sa), f"the {label} fill differs from the upload's SA")
+            del sa
+            line.append(f"{label}: {stats['slices']} slices of at most {chains} chains, "
+                        f"live width {stats['live_width']}, {stats['rounds']} rounds, "
+                        f"{secs:.3f} s, peak {peak / 2**30:.3f} GiB above the resident")
+        check(stats["slices"] == -(-stats["chains"] // GUARD_CHAINS) > 1
+              and stats["live_width"] <= GUARD_CHAINS, "the sliced fill did not slice")
+    finally:
+        sa_fill._FILL_CHAINS = old
+        for counter, was in zip((sj.LAUNCHES, sj.LAUNCHES_BY_SIGMA), saved):
+            counter.clear()
+            counter.update(was)
+    log(f"[main] sliced SA fill check: both equal the upload's SA; {'; '.join(line)}")
+    del sa_up
+    torch.cuda.empty_cache()
+
+
 def sa_order_check(torch, dev, text, tag: str, rng) -> None:
     """N_ORDER_PAIRS random adjacent rows (i, i+1) of the filled SA: the
     suffixes at SA[i] and SA[i+1], read from the raw text 32 bytes at a
@@ -597,6 +670,7 @@ def main_path(torch, ft) -> dict:
                  dense_host_entries=1 << 20, sa_full="device", sa_fill_ratio=4)
     upload_launches = dict(sj.LAUNCHES_BY_SIGMA)
     sa_fill_check(torch, fm, dev, "main")
+    sliced_fill_check(torch, fm, dev, ratio=4)
 
     rng = np.random.default_rng(SEED + 1)
     first_query_s = None
@@ -711,23 +785,25 @@ def kernel_case(torch, name, table, keys, payload, sigma, decode, launches: int,
                 bound_bytes=bound["bound_bytes"])
 
 
-def kernel_keys(torch, dev, rng, high_from: int | None = None):
+def kernel_keys(torch, dev, rng, high_from: tuple = ()):
     """KERNEL_KEYS sorted keys over [0, n] (one B=1M search pass), the
-    sentinel row's keys and key n included; with ``high_from``, half of
-    them drawn from [high_from, n] and the keys on both sides of it."""
+    sentinel row's keys and key n included; for each bound of ``high_from``
+    an equal share of them drawn from [bound, n], and the keys on both
+    sides of it."""
     n = int(dev.count_arr[-1])
     special = [0, dev.sentinel - 1, dev.sentinel, dev.sentinel + 1, n]
-    if high_from is not None:
-        special += [high_from - 1, high_from, high_from + 1]
+    for h in high_from:
+        special += [h - 1, h, h + 1]
     special = torch.tensor(special, device=DEVICE)
     m = KERNEL_KEYS - special.shape[0]
-    drawn = (rng.integers(0, n + 1, size=m) if high_from is None else np.concatenate(
-        [rng.integers(0, n + 1, size=m - m // 2), rng.integers(high_from, n + 1, size=m // 2)]))
+    share = m // (len(high_from) + 1)
+    drawn = np.concatenate([rng.integers(0, n + 1, size=m - share * len(high_from))]
+                           + [rng.integers(h, n + 1, size=share) for h in high_from])
     return torch.sort(torch.cat([special, torch.from_numpy(drawn).to(DEVICE)]))[0]
 
 
 def kernel_cases(torch, dev, rng, cases, launches: dict, seg_base=None,
-                 high_from: int | None = None) -> list[dict]:
+                 high_from: tuple = ()) -> list[dict]:
     """``cases``: (name, table, sigma, decode) on ``dev``'s keys, each with
     its mode's count from ``launches`` (keyed by (mode, sigma)).
     ``high_from``: see :func:`kernel_keys`."""
@@ -869,10 +945,15 @@ def hbm_kernel_phase(torch, by_sigma: dict) -> list[dict]:
 def hi_ckpt_phase(torch, by_sigma: dict) -> list[dict]:
     """The main path's two modes on narrow tables whose checkpoint words all
     lie in HI_CKPT, 2^31 and above, as every table of an index between 2^31
-    and 2^32 bp holds past its middle: words that read negative as int32."""
+    and 2^32 bp holds past its middle: words that read negative as int32;
+    then on tables whose words lie in TOP_CKPT, the top of the u32 range."""
     return synthetic_kernel_phase(
         torch, SEED + 16, HI_CKPT_ROWS,
-        (("join_rank_hi_ckpt", 16, False), ("join_decode_hi_ckpt", 4, True)), by_sigma, HI_CKPT)
+        (("join_rank_hi_ckpt", 16, False), ("join_decode_hi_ckpt", 4, True)), by_sigma,
+        HI_CKPT) + synthetic_kernel_phase(
+        torch, SEED + 18, HI_CKPT_ROWS,
+        (("join_rank_top_ckpt", 16, False), ("join_decode_top_ckpt", 4, True)), by_sigma,
+        TOP_CKPT)
 
 
 def synthetic_kernel_phase(torch, seed: int, rows: int, cases, by_sigma: dict,
@@ -1767,7 +1848,7 @@ def opt_in_sizes(narrow: int, wide: int) -> None:
     builds do not fit one host together."""
     if narrow:
         check(NARROW_RANGE[0] < narrow < NARROW_RANGE[1],
-              f"SMOKE_NARROW_TEXT_SIZE must lie in (2^31 + 2^20, 2^32 - 2^20), not {narrow}")
+              f"SMOKE_NARROW_TEXT_SIZE must lie in (2^31 + 2^20, 2^32), not {narrow}")
         check(not wide, "SMOKE_NARROW_TEXT_SIZE and SMOKE_WIDE_TEXT_SIZE cannot share a run: "
               "their two builds do not fit one host together")
     if wide:
@@ -1806,17 +1887,18 @@ def find_all(mm, pat: bytes) -> list[int]:
     return out
 
 
-def scan_text(text, pats, tag: str, above: int) -> list[list[int]]:
+def scan_text(text, pats, tag: str, *above: int) -> list[list[int]]:
     """Every position of each pattern (uint8 [P, L]) in the raw text, by
-    scanning the mapped file: an oracle that reads no table of the index."""
+    scanning the mapped file: an oracle that reads no table of the index.
+    Logs how many positions lie at or above each bound of ``above``."""
     import mmap
 
     t0 = time.perf_counter()
     with open(text.filename, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
         scan = [find_all(mm, p.tobytes()) for p in pats]
+    counts = "".join(f", {sum(p >= a for v in scan for p in v)} at or above {a}" for a in above)
     log(f"[{tag}] {len(scan)} patterns scanned for in the raw text in "
-        f"{time.perf_counter() - t0:.1f} s: {sum(map(len, scan))} positions, "
-        f"{sum(p >= above for v in scan for p in v)} at or above 2^{above.bit_length() - 1}")
+        f"{time.perf_counter() - t0:.1f} s: {sum(map(len, scan))} positions{counts}")
     return scan
 
 
@@ -1901,16 +1983,66 @@ def wide_text_phase(torch, ft, build) -> list[dict]:
     return kernels
 
 
+def fill_budget_check(mem: dict, n: int) -> None:
+    """The upload's SA fill ran in slices (``build/sa_fill.STATS``) and its
+    phase's device peak stayed within ``sa_fill.fill_budget`` above the
+    memory resident when the phase began (the end of the ``pair`` phase)."""
+    from sview_fmindex_tpu_torch.build import sa_fill
+
+    stats = dict(sa_fill.STATS)
+    before = mem["resident"]["pair"]
+    extra = mem["peaks"]["sa_fill"] - before
+    budget = sa_fill.fill_budget(n, stats["chains"])
+    log(f"[narrow_text] SA fill: {stats['chains']} chains in {stats['slices']} slices of at most "
+        f"{sa_fill._FILL_CHAINS}, live width {stats['live_width']}, {stats['rounds']} rounds; "
+        f"peak {mem['peaks']['sa_fill'] / 2**30:.2f} GiB = {before / 2**30:.2f} resident before "
+        f"+ {extra / 2**30:.2f}, budget {budget / 2**30:.2f} GiB (the int32 SA "
+        f"{4 * n / 2**30:.2f} + {min(stats['chains'], sa_fill._FILL_CHAINS)} chains x "
+        f"{sa_fill.CHAIN_BYTES} B)")
+    check(stats["slices"] == -(-stats["chains"] // sa_fill._FILL_CHAINS)
+          and stats["live_width"] <= sa_fill._FILL_CHAINS, "the SA fill did not run in slices")
+    check(extra <= budget, f"the SA fill held {extra} bytes above the resident memory, over its "
+          f"budget of {budget}")
+
+
+def top_seed_check(torch, dev, text) -> None:
+    """The dense seed of the last k-mer (dense_k times the last symbol, T):
+    its range ends at n, the word that reads -1 as int32 at n = 2^32 - 1.
+    That k-mer alone and a 20-bp pattern that starts with it, against the
+    scan of the raw text."""
+    n = text.shape[0]
+    dk = dev.meta.dense_k
+    run = np.full((1, dk), ord("T"), np.uint8)
+    occ = scan_text(text, run, "narrow_text")[0]
+    check(len(occ) > 0, f"T^{dk} does not occur in the text")
+    lo, hi = dev.pos_ranges(torch.from_numpy(run).to(DEVICE), use_stream=True)
+    check(int(hi[0]) == n and int(hi[0]) - int(lo[0]) == len(occ),
+          f"the range of T^{dk} is [{int(lo[0])}, {int(hi[0])}), not [n - {len(occ)}, n)")
+    scan_check(torch, dev, "narrow_text", run, [occ])
+    p = next((p for p in occ if p + PATTERN_LEN <= n), None)
+    check(p is not None, f"no occurrence of T^{dk} is followed by {PATTERN_LEN - dk} bp")
+    pat = np.array(text[p:p + PATTERN_LEN])[None]
+    want = [q for q in occ
+            if q + PATTERN_LEN <= n and bytes(text[q:q + PATTERN_LEN]) == pat.tobytes()]
+    scan_check(torch, dev, "narrow_text", pat, [want])
+    log(f"[narrow_text] the dense seed of T^{dk} is [{int(lo[0])}, {n}): its {len(occ)} "
+        f"occurrences and the {len(want)} of a 20-bp pattern starting with it equal the scan")
+
+
 def narrow_text_phase(torch, ft, build) -> list[dict]:
     """Phase 15: the u32 blob over NARROW_TEXT_SIZE bp, between 2^31 and
     2^32 (built by ``build``, the child process), uploaded as the bench
     uploads it and served by the narrow engine, its tables' words past 2^31
-    negative as int32: the SA fill against the blob and the raw text, the
-    batches with half their starts above 2^31, 16 patterns against a scan of
-    the raw text, the kernel on the real tables, then the walk upload."""
+    negative as int32: the SA fill against the blob and the raw text and
+    within its memory budget, the batches with half their starts above 2^31,
+    16 patterns and the dense seed whose range ends at n against a scan of
+    the raw text, the kernel on the real tables, then the walk upload.  At
+    NARROW_TOP and above, keys, positions and rows that high are held too."""
     from sview_fmindex_tpu_torch.ops import stream_join as sj
 
     size = NARROW_TEXT_SIZE
+    top = size >= NARROW_TOP
+    bounds = (NARROW_HIGH, NARROW_TOP) if top else (NARROW_HIGH,)
     wait_build(build, size, "narrow_text")
     text = get_text(size)
     t0 = time.perf_counter()
@@ -1922,16 +2054,21 @@ def narrow_text_phase(torch, ft, build) -> list[dict]:
         starts = np.concatenate([rng.integers(0, size - PATTERN_LEN, size=B // 2),
                                  rng.integers(NARROW_HIGH, size - PATTERN_LEN, size=B - B // 2)])
         batches[B] = dict(pats=np.ascontiguousarray(text[starts[:, None] + np.arange(PATTERN_LEN)]))
-    starts = np.concatenate([rng.integers(0, NARROW_HIGH, size=8),
-                             rng.integers(NARROW_HIGH, size - PATTERN_LEN, size=8)])
+    # 8 below 2^31 and 8 above; at the top, 4 of those from NARROW_TOP on
+    starts = np.concatenate([rng.integers(0, NARROW_HIGH, size=8)] + (
+        [rng.integers(NARROW_HIGH, NARROW_TOP, size=4),
+         rng.integers(NARROW_TOP, size - PATTERN_LEN, size=4)] if top
+        else [rng.integers(NARROW_HIGH, size - PATTERN_LEN, size=8)]))
     scan_pats = np.ascontiguousarray(text[starts[:, None] + np.arange(PATTERN_LEN)])
-    scan = scan_text(text, scan_pats, "narrow_text", NARROW_HIGH)
+    scan = scan_text(text, scan_pats, "narrow_text", *bounds)
 
     sj.LAUNCHES.clear()
     sj.LAUNCHES_BY_SIGMA.clear()
-    dev = upload(torch, ft, fm, "narrow_text", **bench_torch.UPLOAD_KW)
+    mem = {}
+    dev = upload(torch, ft, fm, "narrow_text", mem=mem, **bench_torch.UPLOAD_KW)
     check(not dev.meta.wide_pos and dev.meta.has_sa_full and dev.meta.pair_rows > 0,
           "the narrow text did not upload to the narrow engine with the full SA and pair table")
+    fill_budget_check(mem, size)
     sa_fill_check(torch, fm, dev, "narrow_text")
     sa_order_check(torch, dev, text, "narrow_text", rng)
     for B, want in batches.items():
@@ -1940,13 +2077,15 @@ def narrow_text_phase(torch, ft, build) -> list[dict]:
         want.update(counts=counts, sets=sets)
         locs, _, valid = out[:3]
         lo, hi = dev.pos_ranges(torch.from_numpy(want["pats"]).to(DEVICE), use_stream=True)
-        above = int((locs[valid] >= NARROW_HIGH).sum())
-        lo_hi, hi_hi = int((lo >= NARROW_HIGH).sum()), int((hi >= NARROW_HIGH).sum())
-        log(f"[narrow_text] B={B}: {above} of {int(valid.sum())} located positions, {lo_hi} lo "
-            f"and {hi_hi} hi rows of {B} ranges at or above 2^31")
-        check(above > 0 and lo_hi > 0 and hi_hi > 0,
-              "no located position or range row at or above 2^31")
+        for bound in bounds:
+            above = int((locs[valid] >= bound).sum())
+            lo_hi, hi_hi = int((lo >= bound).sum()), int((hi >= bound).sum())
+            log(f"[narrow_text] B={B}: {above} of {int(valid.sum())} located positions, {lo_hi} "
+                f"lo and {hi_hi} hi rows of {B} ranges at or above {bound}")
+            check(above > 0 and lo_hi > 0 and hi_hi > 0,
+                  f"no located position or range row at or above {bound}")
     scan_check(torch, dev, "narrow_text", scan_pats, scan)
+    top_seed_check(torch, dev, text)
     by_sigma = dict(sj.LAUNCHES_BY_SIGMA)
     log(f"[narrow_text] kernel launches: {dict(sj.LAUNCHES)}; by (mode, sigma): {by_sigma}")
     check(by_sigma.get(("rank", 16), 0) > 0, "the pair chain never launched rank@16")
@@ -1956,7 +2095,8 @@ def narrow_text_phase(torch, ft, build) -> list[dict]:
     kernels = kernel_cases(
         torch, dev, np.random.default_rng(SEED + 15),
         [("join_rank_pair_narrow_hi", dev.pair_tbl, 16, False),
-         ("join_decode_narrow_hi", dev.stream_tbl, 4, True)], by_sigma, high_from=NARROW_HIGH)
+         ("join_decode_narrow_hi", dev.stream_tbl, 4, True)], by_sigma,
+        high_from=(NARROW_HIGH, size - NARROW_TOP_KEYS) if top else (NARROW_HIGH,))
     del dev
     torch.cuda.empty_cache()
 

@@ -366,10 +366,10 @@ def test_sa_fill_in_pieces_of_seven(monkeypatch, case, blob, text, ratio):
     # the seed writes the same rows piece by piece
     R = fm.sampling_ratio * ratio
     sa_up = torch.from_numpy(np.asarray(fm.suffix_array[::ratio]).astype(np.int64))
-    out7, known7, _ = sa_fill._seed(sa_up, fm.text_len, R)
+    out7 = sa_fill._seed(sa_up, fm.text_len, R)
     monkeypatch.setattr(sa_fill, "_PIECE", 1 << 28)
-    out, known, _ = sa_fill._seed(sa_up, fm.text_len, R)
-    assert torch.equal(out7, out) and torch.equal(known7, known)
+    out = sa_fill._seed(sa_up, fm.text_len, R)
+    assert torch.equal(out7, out)
     assert torch.equal(trank.u32(out[::R]), sa_up)
 
 
@@ -398,7 +398,8 @@ def test_unfilled_rows_in_pieces(monkeypatch, n):
 @pytest.mark.parametrize("narrow,wide,ok", [
     (0, 0, True), (3_100_000_000, 0, True), (2**31 + 2**20 + 1, 0, True),
     (2**32 - 2**20 - 1, 0, True), (0, 4_500_000_000, True),
-    (2**31, 0, False), (2**31 + 2**20, 0, False), (2**32 - 2**20, 0, False),
+    (2**32 - 2**20, 0, True), (2**32 - 2**24, 0, True), (2**32 - 1, 0, True),
+    (2**31, 0, False), (2**31 + 2**20, 0, False), (2**32, 0, False),
     (1_000_000_000, 0, False), (5_000_000_000, 0, False),
     (3_100_000_000, 4_500_000_000, False), (0, 2**32, False)])
 def test_opt_in_size_guard(narrow, wide, ok):
