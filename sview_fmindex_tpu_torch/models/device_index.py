@@ -32,6 +32,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import tracing
 from ..build import dense_lut as dense_ops
 from ..config import BuildError
 from ..ops import locate as locate_ops
@@ -531,17 +532,19 @@ class DeviceFmIndex:
     def _ranges(self, patterns, lens, use_stream, use_pair):
         """(lo, hi, stream): the ranges and whether the stream engine
         served them."""
-        patterns, lens, steps, (all_dense, fixed_len) = _as_batch(
-            self.meta, patterns, lens, self.device, self.passthrough)
-        sym = search_ops.encode_patterns(self.enc_table, patterns)
-        stream = self._stream(patterns.shape[0], use_stream)
-        if self.meta.wide_pos:
-            lo, hi = wide_ops.pos_ranges_wide(self, sym, lens, steps, use_stream=stream,
-                                              all_dense=all_dense, fixed_len=fixed_len)
-        else:
-            lo, hi = search_ops.pos_ranges(
-                self, sym, lens, steps, use_stream=stream, use_pair=use_pair,
-                all_dense=all_dense, fixed_len=fixed_len)
+        with tracing.span("fmindex.intake"):
+            patterns, lens, steps, (all_dense, fixed_len) = _as_batch(
+                self.meta, patterns, lens, self.device, self.passthrough)
+        with tracing.span("fmindex.search"):
+            sym = search_ops.encode_patterns(self.enc_table, patterns)
+            stream = self._stream(patterns.shape[0], use_stream)
+            if self.meta.wide_pos:
+                lo, hi = wide_ops.pos_ranges_wide(self, sym, lens, steps, use_stream=stream,
+                                                  all_dense=all_dense, fixed_len=fixed_len)
+            else:
+                lo, hi = search_ops.pos_ranges(
+                    self, sym, lens, steps, use_stream=stream, use_pair=use_pair,
+                    all_dense=all_dense, fixed_len=fixed_len)
         return lo, hi, stream
 
     def count(self, patterns, lens=None, use_stream: bool | None = None,
@@ -549,8 +552,10 @@ class DeviceFmIndex:
         """counts int64 [B] for a [B, Lmax] uint8 batch (raw bytes for
         EncodingTable indexes, symbol indices for PassThrough); wide indexes
         too.  ``use_pair=False`` forces the single-symbol engines."""
-        lo, hi, _ = self._ranges(patterns, lens, use_stream, use_pair)
-        return hi - lo
+        with tracing.span("fmindex.count"):
+            tracing.count("calls")
+            lo, hi, _ = self._ranges(patterns, lens, use_stream, use_pair)
+            return hi - lo
 
     def pos_ranges(self, patterns, lens=None, use_stream: bool | None = None):
         """(lo, hi) int64 [B], wide indexes too."""
@@ -573,11 +578,16 @@ class DeviceFmIndex:
         """(locs, pids, valid, counts, dropped), all int64 / bool tensors;
         no host sync when ``capacity`` is given (a walk still syncs once per
         step)."""
-        lo, hi, stream = self._ranges(patterns, lens, use_stream, use_pair)
-        if capacity is None:
-            capacity = locate_ops.expand_capacity((hi - lo).cpu().numpy())
-        locs, pids, valid, dropped = self.resolve_rows(lo, hi, capacity, stream)
-        return locs, pids, valid, hi - lo, dropped
+        with tracing.span("fmindex.locate"):
+            tracing.count("calls")
+            lo, hi, stream = self._ranges(patterns, lens, use_stream, use_pair)
+            if capacity is None:
+                with tracing.span("fmindex.capacity"):
+                    tracing.count("syncs")
+                    capacity = locate_ops.expand_capacity((hi - lo).cpu().numpy())
+            with tracing.span("fmindex.resolve"):
+                locs, pids, valid, dropped = self.resolve_rows(lo, hi, capacity, stream)
+            return locs, pids, valid, hi - lo, dropped
 
     def resolve_rows(self, lo, hi, capacity: int, use_stream: bool = False):
         """Expand [lo, hi) ranges and resolve rows to locations: (locs,
@@ -648,6 +658,10 @@ def _as_batch(meta, patterns, lens, device, passthrough: bool = False):
     else:
         patterns = np.asarray(patterns, dtype=np.uint8)
     if passthrough:
+        if isinstance(patterns, torch.Tensor) and patterns.device == device \
+                and patterns.numel():
+            # check_symbols reads the batch's largest byte on the host
+            tracing.count("syncs")
         check_symbols(patterns, meta.sigma)
     if isinstance(patterns, torch.Tensor):
         patterns = patterns.to(device)
@@ -661,9 +675,13 @@ def _as_batch(meta, patterns, lens, device, passthrough: bool = False):
                               dtype=torch.int64, device=device)
     else:
         if isinstance(lens, torch.Tensor):
+            if lens.device == device:
+                tracing.count("syncs")
             lens = lens.cpu().numpy()
         lens_host = np.asarray(lens, dtype=np.int32).reshape(-1)
         lens_dev = torch.as_tensor(lens_host.astype(np.int64), device=device)
+        tracing.count("intake_bytes", lens_dev.numel() * lens_dev.element_size())
+    tracing.count("intake_bytes", patterns.numel())
     steps = search_ops.max_steps_needed(meta, lens_host, patterns.shape[1])
     all_dense = bool(meta.dense_k) and lens_host.size > 0 and bool(
         (lens_host >= meta.dense_k).all())

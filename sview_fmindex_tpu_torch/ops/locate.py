@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from . import stream_join as sj
 from .rank import pre_rank_and_symidx, u32
 
@@ -90,6 +91,7 @@ def lf_walk(r: int, count_arr, sa, rows, valid, decode):
     done = torch.zeros_like(valid)
     while r > 1:
         need = (pos % r != 0) & ~done & valid
+        tracing.count("syncs")
         if not bool(need.any()):
             break
         rank, symidx, is_sent = decode(torch.where(need, pos, 0))

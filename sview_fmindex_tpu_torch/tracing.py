@@ -1,0 +1,49 @@
+"""Spans and counters of the query path, live only while ``torch.profiler``
+records.
+
+- :func:`span` enters ``torch.profiler.record_function`` while a profiler
+  records, so the query path's layers land in the profiler's own timeline
+  beside the device's kernels, copies and memsets, on one clock.  At all
+  other times it is a no-op that costs one flag read.
+- :data:`COUNTS` holds what the query path counts while a profiler records
+  (:func:`count`): exactly the traced window, nothing before or after it.
+
+Spans (``models/device_index.py``): ``fmindex.locate`` and ``fmindex.count``
+cover a whole call; inside them ``fmindex.intake`` (the batch put on the
+index's device, its host facts), ``fmindex.search`` (encode, seed, every
+pass of every engine), ``fmindex.capacity`` (the counts read on the host to
+size the locate buffer) and ``fmindex.resolve`` (expand, then the SA gather
+or the LF walk).
+
+Counters: ``calls`` (``count`` and ``locate_with_counts`` calls),
+``intake_bytes`` (the batch's patterns, and its lengths where the caller
+gave them, as they sit on the index's device) and ``syncs`` (each point
+where the host waits for a value held on the device: the capacity read,
+each step test of the LF walk, lengths or a PassThrough batch handed in on
+the index's device).
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+COUNTS: collections.Counter = collections.Counter()
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager: ``record_function(name)`` while a profiler
+    records, else nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def count(key: str, n: int = 1) -> None:
+    """Add ``n`` to ``COUNTS[key]`` while a profiler records."""
+    if _autograd_profiler._is_profiler_enabled:
+        COUNTS[key] += n
