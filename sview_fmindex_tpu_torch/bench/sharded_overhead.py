@@ -117,7 +117,7 @@ def main() -> None:
                 out = torch.empty_like(x)
                 for label, fn in (
                         ("pad_batch", lambda: query.pad_batch(pats, None, 1)),
-                        ("_facts", lambda: sh._facts(lens)),
+                        ("_facts", lambda: sh._facts(lens, PATTERN_LEN)),
                         ("max_steps_needed",
                          lambda: search_ops.max_steps_needed(dev.meta, lens, PATTERN_LEN)),
                         ("local_lens", lambda: query.local_lens(mesh, lens, "dp")),

@@ -669,10 +669,10 @@ def _as_batch(meta, patterns, lens, device, passthrough: bool = False):
         patterns = torch.as_tensor(patterns, device=device)
     if patterns.dim() == 1:
         patterns = patterns[None, :]
+    B, L = patterns.shape
     if lens is None:
-        lens_host = np.full(patterns.shape[0], patterns.shape[1], np.int32)
-        lens_dev = torch.full((patterns.shape[0],), patterns.shape[1],
-                              dtype=torch.int64, device=device)
+        lens_host = None
+        lens_dev = torch.full((B,), L, dtype=torch.int64, device=device)
     else:
         if isinstance(lens, torch.Tensor):
             if lens.device == device:
@@ -682,9 +682,7 @@ def _as_batch(meta, patterns, lens, device, passthrough: bool = False):
         lens_dev = torch.as_tensor(lens_host.astype(np.int64), device=device)
         tracing.count("intake_bytes", lens_dev.numel() * lens_dev.element_size())
     tracing.count("intake_bytes", patterns.numel())
-    steps = search_ops.max_steps_needed(meta, lens_host, patterns.shape[1])
-    all_dense = bool(meta.dense_k) and lens_host.size > 0 and bool(
-        (lens_host >= meta.dense_k).all())
-    fixed_len = int(lens_host[0]) if (
-        lens_host.size > 0 and (lens_host == lens_host[0]).all()) else None
+    # lengths given are read on the host; else the shape gives the facts
+    tracing.count("intake_scans", int(lens_host is not None))
+    steps, all_dense, fixed_len = search_ops.batch_facts(meta, lens_host, B, L)
     return patterns, lens_dev, steps, (all_dense, fixed_len)

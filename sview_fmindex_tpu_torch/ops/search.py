@@ -93,15 +93,45 @@ def initial_range(meta, kmer_tbl, dense_lo, dense_hi, sym, lens,
     return lo, hi, rem, seed_len
 
 
+def batch_facts(meta, lens, B: int, Lmax: int) -> tuple:
+    """Host facts of a [B, Lmax] batch: ``(steps, all_dense, fixed_len)``,
+    the LF-loop trip count (the most steps any lane needs), whether every
+    lane is long enough for the dense seed, and the one length all lanes
+    share (else None).
+
+    ``lens`` None: every lane has length ``Lmax``, and the facts follow from
+    the shape alone.  Else ``lens`` (host lengths; ``B`` is then its size)
+    is read by one min and one max; only a batch straddling ``dense_k``
+    whose short lanes could need more steps than its long ones takes a
+    third, masked max."""
+    k, dk = meta.kmer_size, meta.dense_k
+
+    def steps_of(n):   # steps of a lane of length n
+        return n - dk if dk and n >= dk else max(n - k, 0)
+
+    if lens is None:
+        if B == 0:
+            return 0, False, None
+        lmin = lmax = Lmax
+    else:
+        lens = np.asarray(lens)
+        if lens.size == 0:
+            return 0, False, None
+        lmin, lmax = int(lens.min()), int(lens.max())
+    most = steps_of(lmax)
+    if dk and lmin < dk <= lmax and most < dk - 1 - k:
+        # the long lanes' most is lmax - dk; a short lane may need up to
+        # dk - 1 - k.  Long lanes read 0 here, which needs no steps
+        # (numpy's ``max(where=)`` takes ten times as long)
+        most = max(most, steps_of(int((lens * (lens < dk)).max())))
+    return (min(most, max(Lmax - k, 0)), bool(dk) and lmin >= dk,
+            lmin if lmin == lmax else None)
+
+
 def max_steps_needed(meta, lens, Lmax: int) -> int:
     """Host-side LF-loop trip count: the most steps any lane needs."""
     lens = np.asarray(lens)
-    if lens.size == 0:
-        return 0
-    per = np.maximum(lens - meta.kmer_size, 0)
-    if meta.dense_k:
-        per = np.where(lens >= meta.dense_k, lens - meta.dense_k, per)
-    return min(int(per.max()), max(Lmax - meta.kmer_size, 0))
+    return batch_facts(meta, lens, lens.size, Lmax)[0]
 
 
 def sym_back(sym: torch.Tensor, lens: torch.Tensor, seed_len: torch.Tensor, back):

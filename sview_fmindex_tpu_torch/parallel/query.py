@@ -102,16 +102,12 @@ class ShardedFmIndex:
         return pad_batch(patterns, lens, self.n_devices,
                          idx.meta.sigma if idx.passthrough else None)
 
-    def _facts(self, lens) -> tuple:
-        """Host-side batch facts (see device_index._as_batch), over the
+    def _facts(self, lens, Lmax: int) -> tuple:
+        """Host-side batch facts ``(steps, all_dense, fixed_len)``
+        (``search.batch_facts``, as in device_index._as_batch), over the
         padded lengths: padding lanes have length 1, so all_dense only holds
         unpadded."""
-        meta = self.index.meta
-        all_dense = bool(meta.dense_k) and lens.size > 0 and bool(
-            (lens >= meta.dense_k).all())
-        fixed_len = int(lens[0]) if (
-            lens.size > 0 and (lens == lens[0]).all()) else None
-        return all_dense, fixed_len
+        return search_ops.batch_facts(self.index.meta, lens, lens.size, Lmax)
 
     def _stream(self, B: int, use_stream: bool | None) -> bool:
         # the engine is chosen per shard: the crossover applies to a rank's
@@ -122,9 +118,8 @@ class ShardedFmIndex:
         """This rank's (lo, hi) over its rows of the padded batch, and
         whether the stream engine served them."""
         idx = self.index
-        steps = search_ops.max_steps_needed(idx.meta, lens, patterns.shape[1])
+        steps, all_dense, fixed_len = self._facts(lens, patterns.shape[1])
         stream = self._stream(patterns.shape[0], use_stream)
-        all_dense, fixed_len = self._facts(lens)
         my_pat = distributed.shard_batch(self.mesh, patterns, self.axis)
         my_lens = local_lens(self.mesh, lens, self.axis)
         sym = search_ops.encode_patterns(idx.enc_table, my_pat)

@@ -17,10 +17,12 @@ or the LF walk).
 
 Counters: ``calls`` (``count`` and ``locate_with_counts`` calls),
 ``intake_bytes`` (the batch's patterns, and its lengths where the caller
-gave them, as they sit on the index's device) and ``syncs`` (each point
+gave them, as they sit on the index's device), ``syncs`` (each point
 where the host waits for a value held on the device: the capacity read,
 each step test of the LF walk, lengths or a PassThrough batch handed in on
-the index's device).
+the index's device) and ``intake_scans`` (batches whose host facts were
+read from per-lane lengths; a batch without lengths adds 0, so the key is
+there whenever a call was counted).
 """
 from __future__ import annotations
 

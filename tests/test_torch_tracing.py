@@ -3,7 +3,8 @@
 Under ``torch.profiler`` on the CPU, ``locate_with_counts`` and ``count``
 emit their layer spans into the profiler's Chrome trace, nested and in
 order, and ``tracing.COUNTS`` gives the calls, the batch's bytes on the
-index's device and the host's waits for device values.  With no profiler
+index's device, the host's waits for device values and the batches whose
+lengths intake scanned on the host.  With no profiler
 recording nothing is counted and ``record_function`` is never entered; the
 answers are the same either way.  Three small indexes made from seeded numpy
 generators: DNA and protein with the full SA filled on the device, and DNA
@@ -128,8 +129,24 @@ def test_counts_of_a_locate_and_a_count(name, lens_kind):
     # one capacity read per locate; lengths handed in on the index's device
     # are read on the host once per call
     lens_reads = 2 if lens_kind == "device" else 0
+    # lengths given are scanned on the host once per call; without them the
+    # batch's shape gives the facts
+    scans = 0 if lens is None else 2
     assert dict(tracing.COUNTS) == {"calls": 2, "intake_bytes": 2 * per_call,
-                                    "syncs": 1 + lens_reads}
+                                    "syncs": 1 + lens_reads, "intake_scans": scans}
+
+
+@pytest.mark.parametrize("op", ["count", "locate"])
+@pytest.mark.parametrize("name,lens_kind", [("dna", None), ("dna", "host"), ("dna", "device"),
+                                            ("prot", None), ("prot", "host"),
+                                            ("prot", "device")])
+def test_intake_scans_only_batches_with_lengths(name, lens_kind, op):
+    dev = index(name)[2]
+    pats, lens, _ = batch(name, lens_kind)
+    profiled(lambda: [call(dev, op, pats, lens) for _ in range(3)])
+    assert tracing.COUNTS["calls"] == 3
+    assert tracing.COUNTS["intake_scans"] == (0 if lens is None else 3)
+    assert "intake_scans" in tracing.COUNTS
 
 
 def host_walk_tests(fm, pats):
@@ -177,9 +194,11 @@ def test_passthrough_batch_on_the_device_is_read_once():
     starts = rng.integers(0, N - 10, size=B)
     pats = torch.from_numpy(np.stack([text[s:s + 10] for s in starts]))
     want = profiled(lambda: dev.count(pats.numpy()))
-    assert dict(tracing.COUNTS) == {"calls": 1, "intake_bytes": pats.numel()}
+    assert dict(tracing.COUNTS) == {"calls": 1, "intake_bytes": pats.numel(),
+                                    "intake_scans": 0}
     assert torch.equal(profiled(lambda: dev.count(pats)), want)
-    assert dict(tracing.COUNTS) == {"calls": 1, "intake_bytes": pats.numel(), "syncs": 1}
+    assert dict(tracing.COUNTS) == {"calls": 1, "intake_bytes": pats.numel(), "syncs": 1,
+                                    "intake_scans": 0}
 
 
 @pytest.mark.parametrize("name,lens_kind", [("dna", None), ("prot", "host"), ("dna-walk", "host")])
