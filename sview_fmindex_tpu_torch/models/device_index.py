@@ -577,14 +577,20 @@ class DeviceFmIndex:
                            use_stream: bool | None = None, use_pair: bool = True):
         """(locs, pids, valid, counts, dropped), all int64 / bool tensors;
         no host sync when ``capacity`` is given (a walk still syncs once per
-        step)."""
+        step).  Traced, it counts the expand buffer's ``slots``, and without
+        a ``capacity`` the ``rows`` located, from the counts read to size it."""
         with tracing.span("fmindex.locate"):
             tracing.count("calls")
             lo, hi, stream = self._ranges(patterns, lens, use_stream, use_pair)
             if capacity is None:
                 with tracing.span("fmindex.capacity"):
                     tracing.count("syncs")
-                    capacity = locate_ops.expand_capacity((hi - lo).cpu().numpy())
+                    counts = (hi - lo).cpu().numpy()
+                    capacity = locate_ops.expand_capacity(counts)
+                if tracing.recording():
+                    # outside the capacity span: the sum is the trace's own cost
+                    tracing.count("rows", int(counts.sum()))
+            tracing.count("slots", capacity)
             with tracing.span("fmindex.resolve"):
                 locs, pids, valid, dropped = self.resolve_rows(lo, hi, capacity, stream)
             return locs, pids, valid, hi - lo, dropped

@@ -22,7 +22,11 @@ where the host waits for a value held on the device: the capacity read,
 each step test of the LF walk, lengths or a PassThrough batch handed in on
 the index's device) and ``intake_scans`` (batches whose host facts were
 read from per-lane lengths; a batch without lengths adds 0, so the key is
-there whenever a call was counted).
+there whenever a call was counted), and in ``locate_with_counts`` ``rows``
+(the rows located: the sum of the counts the capacity path reads on the
+host, summed only while a profiler records; not counted where the caller
+passes ``capacity``, since then no count is read) and ``slots`` (the expand
+buffer's capacity, a host int on both paths).
 """
 from __future__ import annotations
 
@@ -43,6 +47,12 @@ def span(name: str):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return torch.profiler.record_function(name)
+
+
+def recording() -> bool:
+    """Whether a profiler records: what :func:`span` and :func:`count` test,
+    for a count whose value costs host work to compute."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def count(key: str, n: int = 1) -> None:

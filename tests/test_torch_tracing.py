@@ -4,7 +4,8 @@ Under ``torch.profiler`` on the CPU, ``locate_with_counts`` and ``count``
 emit their layer spans into the profiler's Chrome trace, nested and in
 order, and ``tracing.COUNTS`` gives the calls, the batch's bytes on the
 index's device, the host's waits for device values and the batches whose
-lengths intake scanned on the host.  With no profiler
+lengths intake scanned on the host, and for a locate the rows located and
+the slots of its expand buffer.  With no profiler
 recording nothing is counted and ``record_function`` is never entered; the
 answers are the same either way.  Three small indexes made from seeded numpy
 generators: DNA and protein with the full SA filled on the device, and DNA
@@ -21,6 +22,7 @@ torch.set_num_threads(1)
 
 import sview_fmindex_tpu_torch as ft  # noqa: E402
 from sview_fmindex_tpu_torch import tracing  # noqa: E402
+from sview_fmindex_tpu_torch.ops.locate import expand_capacity  # noqa: E402
 from sview_fmindex_tpu_torch.utils.patterns import pack_patterns  # noqa: E402
 
 AMINO = b"ARNDCQEGHILKMFPSTWYV"
@@ -124,7 +126,8 @@ def test_spans_nest_in_order(name, lens_kind, op, tmp_path):
 def test_counts_of_a_locate_and_a_count(name, lens_kind):
     dev = index(name)[2]
     pats, lens, _ = batch(name, lens_kind)
-    profiled(lambda: (dev.locate_with_counts(pats, lens), dev.count(pats, lens)))
+    (locs, _, _, counts, _), _ = profiled(
+        lambda: (dev.locate_with_counts(pats, lens), dev.count(pats, lens)))
     per_call = pats.numel() + (0 if lens is None else 8 * B)
     # one capacity read per locate; lengths handed in on the index's device
     # are read on the host once per call
@@ -132,8 +135,11 @@ def test_counts_of_a_locate_and_a_count(name, lens_kind):
     # lengths given are scanned on the host once per call; without them the
     # batch's shape gives the facts
     scans = 0 if lens is None else 2
+    # the locate's rows from the counts it read, and its buffer's slots
     assert dict(tracing.COUNTS) == {"calls": 2, "intake_bytes": 2 * per_call,
-                                    "syncs": 1 + lens_reads, "intake_scans": scans}
+                                    "syncs": 1 + lens_reads, "intake_scans": scans,
+                                    "rows": int(counts.sum()), "slots": locs.shape[0]}
+    assert locs.shape[0] == expand_capacity(counts.numpy())
 
 
 @pytest.mark.parametrize("op", ["count", "locate"])
