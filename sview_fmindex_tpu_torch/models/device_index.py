@@ -577,23 +577,23 @@ class DeviceFmIndex:
                            use_stream: bool | None = None, use_pair: bool = True):
         """(locs, pids, valid, counts, dropped), all int64 / bool tensors;
         no host sync when ``capacity`` is given (a walk still syncs once per
-        step).  Traced, it counts the expand buffer's ``slots``, and without
-        a ``capacity`` the ``rows`` located, from the counts read to size it."""
+        step).  Without a ``capacity`` the buffer is sized from two sums of
+        the counts reduced on the device and read as 16 bytes
+        (``ops.locate.device_capacity``).  Traced, it counts the expand
+        buffer's ``slots``, and without a ``capacity`` the ``rows`` located
+        and the ``capacity_bytes`` read to size it."""
         with tracing.span("fmindex.locate"):
             tracing.count("calls")
             lo, hi, stream = self._ranges(patterns, lens, use_stream, use_pair)
+            counts = hi - lo
             if capacity is None:
                 with tracing.span("fmindex.capacity"):
-                    tracing.count("syncs")
-                    counts = (hi - lo).cpu().numpy()
-                    capacity = locate_ops.expand_capacity(counts)
-                if tracing.recording():
-                    # outside the capacity span: the sum is the trace's own cost
-                    tracing.count("rows", int(counts.sum()))
+                    capacity, rows = locate_ops.device_capacity(counts)
+                    tracing.count("rows", rows)
             tracing.count("slots", capacity)
             with tracing.span("fmindex.resolve"):
                 locs, pids, valid, dropped = self.resolve_rows(lo, hi, capacity, stream)
-            return locs, pids, valid, hi - lo, dropped
+            return locs, pids, valid, counts, dropped
 
     def resolve_rows(self, lo, hi, capacity: int, use_stream: bool = False):
         """Expand [lo, hi) ranges and resolve rows to locations: (locs,

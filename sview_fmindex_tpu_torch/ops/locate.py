@@ -23,13 +23,37 @@ from .rank import pre_rank_and_symidx, u32
 _SAT_CAP = 0x7FFFFFFF
 
 
+def _capacity(B: int, extra: int) -> int:
+    """The expand buffer's one sizing rule: ``B`` base slots plus the
+    ``extra`` overflow rows rounded up to a power of two (at least 64)."""
+    return B + max(1 << max(extra - 1, 1).bit_length(), 64)
+
+
 def expand_capacity(counts, base: int | None = None) -> int:
-    """Host-side capacity for :func:`expand_ranges`: ``B`` base slots plus
-    the overflow rounded up to a power of two (at least 64)."""
+    """Host-side capacity for :func:`expand_ranges` from counts already on
+    the host: ``B`` base slots plus the overflow rounded up to a power of
+    two (at least 64)."""
     counts = np.asarray(counts)
     B = base if base is not None else counts.shape[0]
     extra = int((counts - (counts >= 1)).sum())
-    return B + max(1 << max(extra - 1, 1).bit_length(), 64)
+    return _capacity(B, extra)
+
+
+def device_capacity(counts: torch.Tensor) -> tuple[int, int]:
+    """``(capacity, rows)`` for :func:`expand_ranges` from the counts where
+    they lie: the exact int64 sums ``rows`` and the lanes with a count
+    (counts are >= 0, so ``rows`` less them is ``expand_capacity``'s
+    overflow ``sum(counts - (counts >= 1))``) are reduced on the counts'
+    device into one [2] tensor and read in one copy of 16 bytes, counted as
+    one of the ``syncs`` and as ``capacity_bytes``; the capacity equals
+    ``expand_capacity`` over the same counts."""
+    sums = torch.empty(2, dtype=torch.int64, device=counts.device)
+    torch.sum(counts, 0, out=sums[0])
+    torch.sum(counts != 0, 0, out=sums[1])
+    tracing.count("syncs")
+    tracing.count("capacity_bytes", sums.nbytes)
+    rows, nonzero = sums.tolist()
+    return _capacity(counts.shape[0], rows - nonzero), rows
 
 
 def _sat_cumsum(x: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,9 @@ records.
 Spans (``models/device_index.py``): ``fmindex.locate`` and ``fmindex.count``
 cover a whole call; inside them ``fmindex.intake`` (the batch put on the
 index's device, its host facts), ``fmindex.search`` (encode, seed, every
-pass of every engine), ``fmindex.capacity`` (the counts read on the host to
-size the locate buffer) and ``fmindex.resolve`` (expand, then the SA gather
-or the LF walk).
+pass of every engine), ``fmindex.capacity`` (two sums of the counts reduced
+on the device and read on the host to size the locate buffer) and
+``fmindex.resolve`` (expand, then the SA gather or the LF walk).
 
 Counters: ``calls`` (``count`` and ``locate_with_counts`` calls),
 ``intake_bytes`` (the batch's patterns, and its lengths where the caller
@@ -23,10 +23,12 @@ each step test of the LF walk, lengths or a PassThrough batch handed in on
 the index's device) and ``intake_scans`` (batches whose host facts were
 read from per-lane lengths; a batch without lengths adds 0, so the key is
 there whenever a call was counted), and in ``locate_with_counts`` ``rows``
-(the rows located: the sum of the counts the capacity path reads on the
-host, summed only while a profiler records; not counted where the caller
-passes ``capacity``, since then no count is read) and ``slots`` (the expand
-buffer's capacity, a host int on both paths).
+(the rows located: the sum of the counts, one of the two sums the capacity
+read brings to the host; not counted where the caller passes ``capacity``,
+since then nothing is read) and ``slots`` (the expand buffer's capacity, a
+host int on both paths), and in ``ops/locate.device_capacity``
+``capacity_bytes`` (the bytes that capacity read copies to the host: 16,
+the two int64 sums; none where the caller passes ``capacity``).
 """
 from __future__ import annotations
 
@@ -47,12 +49,6 @@ def span(name: str):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return torch.profiler.record_function(name)
-
-
-def recording() -> bool:
-    """Whether a profiler records: what :func:`span` and :func:`count` test,
-    for a count whose value costs host work to compute."""
-    return _autograd_profiler._is_profiler_enabled
 
 
 def count(key: str, n: int = 1) -> None:

@@ -4,8 +4,8 @@ Under ``torch.profiler`` on the CPU, ``locate_with_counts`` and ``count``
 emit their layer spans into the profiler's Chrome trace, nested and in
 order, and ``tracing.COUNTS`` gives the calls, the batch's bytes on the
 index's device, the host's waits for device values and the batches whose
-lengths intake scanned on the host, and for a locate the rows located and
-the slots of its expand buffer.  With no profiler
+lengths intake scanned on the host, and for a locate the rows located, the
+slots of its expand buffer and the bytes read to size it.  With no profiler
 recording nothing is counted and ``record_function`` is never entered; the
 answers are the same either way.  Three small indexes made from seeded numpy
 generators: DNA and protein with the full SA filled on the device, and DNA
@@ -135,11 +135,28 @@ def test_counts_of_a_locate_and_a_count(name, lens_kind):
     # lengths given are scanned on the host once per call; without them the
     # batch's shape gives the facts
     scans = 0 if lens is None else 2
-    # the locate's rows from the counts it read, and its buffer's slots
+    # the locate's rows and the 16 bytes of its capacity read (two int64
+    # sums reduced on the device), and its buffer's slots
     assert dict(tracing.COUNTS) == {"calls": 2, "intake_bytes": 2 * per_call,
                                     "syncs": 1 + lens_reads, "intake_scans": scans,
-                                    "rows": int(counts.sum()), "slots": locs.shape[0]}
+                                    "rows": int(counts.sum()), "capacity_bytes": 16,
+                                    "slots": locs.shape[0]}
     assert locs.shape[0] == expand_capacity(counts.numpy())
+
+
+@pytest.mark.parametrize("name,lens_kind", [("dna", None), ("prot", "host"), ("dna-walk", "host")])
+def test_capacity_bytes_only_where_the_program_sizes_the_buffer(name, lens_kind):
+    dev = index(name)[2]
+    pats, lens, _ = batch(name, lens_kind)
+    counts = profiled(lambda: [dev.locate_with_counts(pats, lens)[3] for _ in range(3)])[0]
+    assert tracing.COUNTS["capacity_bytes"] == 3 * 16
+    assert tracing.COUNTS["rows"] == 3 * int(counts.sum())
+    locs, _, _, counts, dropped = profiled(
+        lambda: dev.locate_with_counts(pats, lens, capacity=4 * B))
+    assert int(dropped.sum()) == 0 and locs.shape[0] == 4 * B
+    # the caller sized the buffer: nothing was read, so neither is counted
+    assert "capacity_bytes" not in tracing.COUNTS and "rows" not in tracing.COUNTS
+    assert tracing.COUNTS["slots"] == 4 * B
 
 
 @pytest.mark.parametrize("op", ["count", "locate"])
