@@ -193,8 +193,7 @@ def run_cell(args) -> None:
             os.makedirs(cache_dir(), exist_ok=True)
             dev = fm.to_device("cpu", stream=False, pair=False, dense_lut_entries=1 << 20,
                                dense_lut_cache=os.path.join(
-                                   cache_dir(), "dense_cpu_memory_torch.npz"),
-                               derived_cache_dir=cache_dir())
+                                   cache_dir(), "dense_cpu_memory_torch.npz"))
         force(dev.fused)
         phases["upload_ns"] = time.perf_counter_ns() - t_ph
         # warm the real batch shapes, so load_ns covers what a first query

@@ -118,8 +118,8 @@ def main() -> None:
                 for label, fn in (
                         ("pad_batch", lambda: query.pad_batch(pats, None, 1)),
                         ("_facts", lambda: sh._facts(lens, PATTERN_LEN)),
-                        ("max_steps_needed",
-                         lambda: search_ops.max_steps_needed(dev.meta, lens, PATTERN_LEN)),
+                        ("batch_facts",
+                         lambda: search_ops.batch_facts(dev.meta, lens, B, PATTERN_LEN)),
                         ("local_lens", lambda: query.local_lens(mesh, lens, "dp")),
                         ("shard_batch", lambda: distributed.shard_batch(mesh, padded, "dp")),
                         ("gather_rows int64", lambda: distributed.gather_rows(x, group)),

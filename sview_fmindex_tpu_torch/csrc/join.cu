@@ -46,8 +46,8 @@
 // 64-byte pieces at data-dependent addresses.  Each query needs one row plus
 // 24 B of keys and results; the arithmetic is a few dozen integer ops.  A real
 // index misses the 50 MB L2 (the pair table is ~1 GB at 1 Gbp), and there
-// almost every sorted key has a row of its own.  Measured with
-// bench/join_probe.py on an H100 80GB HBM3 at 700 W, 2M sorted keys over 34.6M
+// almost every sorted key has a row of its own.  Measured with a standalone
+// row-fetch probe on an H100 80GB HBM3 at 700 W, 2M sorted keys over 34.6M
 // rows: a bare fetch of 32 B or of 64 B of a 64-byte-aligned row takes the
 // same 0.075 ms (the piece is 64 B, about 2.1 TB/s of them against 2.7 TB/s
 // for the same bytes streamed), rows 48 B apart take 0.088-0.090 ms, and it

@@ -4,9 +4,11 @@
 The blob's sections become device tensors:
 
 - ``fused``     int32 [n_blocks, sigma + planes*lanes]: rank checkpoints and
-  bit-plane lanes per block, so a rank query is one row gather,
+  bit-plane lanes per block, so a rank query is one row gather; only the
+  plane lanes are copied, the checkpoints are derived on the device,
 - ``stream_tbl`` / ``pair_tbl`` int32 [n_blocks128, RW]: the sort-join
-  tables for sigma and sigma^2 codes (``ops/stream_join.py``),
+  tables for sigma and sigma^2 codes (``ops/stream_join.py``), derived on
+  the device from ``fused``,
 - ``sa`` int32 [n or ceil(n/r)], ``dense_lo``/``dense_hi`` int32
   [sigma^dk]: 32-bit words holding uint32 values,
 - ``kmer_tbl``, ``count_arr``, ``enc_table``, ``pair_c2``, ``pair_fix``:
@@ -25,7 +27,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import os
 import time
 import warnings
 
@@ -55,7 +56,6 @@ class IndexMeta:
     dense_k: int = 0  # dense seed-table k (0 = disabled)
     stream_rows: int = 0  # stream-table rows (0 = stream engine disabled)
     pair_rows: int = 0  # pair-table rows (0 = pair engine disabled)
-    pair_gather: bool = False  # the gather engine also ranks from the pair table
     wide_pos: bool = False  # u64-position index (ops/wide.py)
     has_sa_full: bool = False  # full (r=1) SA resident on device
 
@@ -183,13 +183,9 @@ class DeviceFmIndex:
     def from_host(cls, fm, device=None, dense_lut_entries: int | None = 1 << 26,
                   dense_lut_cache: str | None = None,
                   dense_host_entries: int = 1 << 20,
-                  stream: bool = True, stream_tile: int | None = None,
-                  stream_derive: bool = True, sa_fill_ratio: int = 4,
+                  stream: bool = True, sa_fill_ratio: int = 4,
                   sa_full: "np.ndarray | str | None" = None,
-                  pair: bool = True, pair_gather: bool = False,
-                  force_wide: bool = False,
-                  ckpt_derive: "bool | str" = "auto",
-                  derived_cache_dir: str | None = None) -> "DeviceFmIndex":
+                  pair: bool = True, force_wide: bool = False) -> "DeviceFmIndex":
         """Upload a host ``FmIndex`` (the blob's zero-copy views) to ``device``
         (None: the current CUDA device; raises where there is none).
 
@@ -202,15 +198,13 @@ class DeviceFmIndex:
         full (r=1) suffix array as a uint32 array, a path to a raw
         little-endian uint32 file (``FmIndexBuilder.build(sa_full_path=)``),
         or ``"device"`` to fill it on the device from the sampled SA strided
-        to ``sa_fill_ratio``.  ``ckpt_derive`` uploads only the plane columns
-        and derives the checkpoints on the device (``"auto"``: on CUDA).
-        ``stream_derive=False`` derives the stream table on the host.
-        ``derived_cache_dir`` caches the host-assembled fused table.
-        ``pair_gather`` lets the gather engine consume two symbols per row
-        gather from the pair table.  ``stream_tile`` is the reference's TPU
-        tile width; the port's tables are untiled, so it is accepted and
-        unused.  Texts of 2^32 bp and more, or ``force_wide``, upload the
-        wide engine (:meth:`_from_host_wide`).
+        to ``sa_fill_ratio``.  Texts of 2^32 bp and more, or ``force_wide``,
+        upload the wide engine (:meth:`_from_host_wide`).
+
+        Every narrow upload, to the CPU as to a card, sends only the plane
+        columns and derives the checkpoints on ``device``
+        (``ops/rank.derive_fused_device``), then the stream and pair tables
+        from that fused table.
         """
         device = resolve_device(device)
         if force_wide or fm.text_len >= 2**32:
@@ -240,8 +234,8 @@ class DeviceFmIndex:
                     "sa_full does not match the blob's sampled suffix array "
                     "(stale or mismatched sa_full cache)")
 
-        # content digest guarding every cache: a cache from a different text
-        # of the same shape must never be served
+        # content digest guarding the dense cache: a cache from a different
+        # text of the same shape must never be served
         h = hashlib.sha1()
         h.update(np.ascontiguousarray(fm.suffix_array[:65536]).tobytes())
         h.update(np.ascontiguousarray(fm.count_array).tobytes())
@@ -249,33 +243,9 @@ class DeviceFmIndex:
                       kind.num_lanes, fm.sampling_ratio)).encode())
         content_digest = h.hexdigest()[:16]
 
-        def _cached(name: str, builder_fn):
-            if derived_cache_dir is None:
-                return builder_fn()
-            os.makedirs(derived_cache_dir, exist_ok=True)
-            path = os.path.join(derived_cache_dir, f"{name}_{content_digest}.npy")
-            if os.path.exists(path):
-                return np.load(path, mmap_mode="r")
-            arr = builder_fn()
-            # atomic publish: a crash mid-write must never leave a truncated
-            # cache at the final name
-            tmp = os.path.join(derived_cache_dir,
-                               f"{name}_{content_digest}.tmp{os.getpid()}.npy")
-            try:
-                np.save(tmp, arr)
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-            return arr
-
         n_blocks = fm.rank_checkpoints.shape[0]
         sigma = fm.symbol_count
         planes_eff = planes_effective(fm)
-
-        def _build_fused():
-            return narrow_fused_rows(fm, planes_eff)
-
         enc_table = _enc_table(fm)
 
         dk = dense_ops.auto_dense_k(sigma, fm.kmer_size, dense_lut_entries or 0,
@@ -311,18 +281,10 @@ class DeviceFmIndex:
             num_lanes=kind.num_lanes, dense_k=dk,
             stream_rows=n_rows if use_stream_engine else 0,
             pair_rows=n_rows if use_pair else 0,
-            pair_gather=bool(pair_gather and use_pair),
             has_sa_full=(sa_full is not None) or sa_device_fill)
 
-        if ckpt_derive == "auto":
-            ckpt_derive = device.type == "cuda"
-        if ckpt_derive:
-            planes_host = np.ascontiguousarray(
-                fm.lanes[:, :planes_eff, :]).reshape(n_blocks, -1)
-            fused_dev = rank_ops.derive_fused_device(
-                meta, _i32(planes_host, device), fm.text_len)
-        else:
-            fused_dev = _i32(_cached(f"fused{planes_eff}", _build_fused), device)
+        planes_host = np.ascontiguousarray(fm.lanes[:, :planes_eff, :]).reshape(n_blocks, -1)
+        fused_dev = rank_ops.derive_fused_device(meta, _i32(planes_host, device), fm.text_len)
         count_dev = _i64(fm.count_array, device)
         kmer_dev = _i64(fm.kmer_count_table, device)
         enc_dev = _i64(enc_table, device)
@@ -341,11 +303,7 @@ class DeviceFmIndex:
 
         stream_dev = None
         if use_stream_engine:
-            if stream_derive:
-                stream_dev = stream_join.derive_stream_table(meta, fused_dev, fm.text_len)
-            else:
-                stream_dev = stream_join.derive_stream_table(
-                    meta, _i32(_build_fused(), "cpu"), fm.text_len).to(device)
+            stream_dev = stream_join.derive_stream_table(meta, fused_dev, fm.text_len)
         phase("stream")
 
         pair_tbl = pair_c2 = pair_fix = None
@@ -433,8 +391,9 @@ class DeviceFmIndex:
         ``arrays`` holds ``np.asarray`` of every field of a JAX
         ``DeviceFmIndex``, ``meta`` is its ``IndexMeta``.  Tables are copied
         (stream and pair tables through the layout adapter); ``pair_c2`` and
-        ``pair_fix`` are copied as they are, ``pair_gtbl`` is not needed (the
-        port's pair gather ranks from ``pair_tbl``).  Wide state
+        ``pair_fix`` are copied as they are; ``pair_gtbl`` and the JAX
+        meta's two-symbol gather flag are ignored (the port's gather engine
+        ranks one symbol per row gather).  Wide state
         (``meta.wide_pos``): ``fused`` is copied, the (hi, lo) lanes of
         ``sa``, ``kmer_tbl``, ``count_arr``, the dense tables, ``sentinel``
         and ``seg_base`` become int64 values, and the pair placeholders are
@@ -464,8 +423,7 @@ class DeviceFmIndex:
             block_len=meta.block_len, num_planes=meta.num_planes,
             num_lanes=meta.num_lanes, dense_k=meta.dense_k,
             stream_rows=n_rows if stream else 0, pair_rows=n_rows if pair else 0,
-            pair_gather=bool(meta.pair_gather and pair), wide_pos=wide,
-            has_sa_full=meta.has_sa_full)
+            wide_pos=wide, has_sa_full=meta.has_sa_full)
         stream_tbl = seg_base = None
         if stream and wide:
             rows, base = stream_join.stream_table_wide_from_reference(
@@ -650,7 +608,9 @@ def check_symbols(patterns, sigma: int) -> None:
 def to_device_torch(fm, device=None, **kwargs) -> DeviceFmIndex:
     """``FmIndex.to_device`` for any host index of the blob format: upload
     ``fm`` to ``device`` (None: the current CUDA device; keywords as
-    ``DeviceFmIndex.from_host``)."""
+    ``DeviceFmIndex.from_host``: ``dense_lut_entries``, ``dense_lut_cache``,
+    ``dense_host_entries``, ``stream``, ``sa_fill_ratio``, ``sa_full``,
+    ``pair``, ``force_wide``)."""
     return DeviceFmIndex.from_host(fm, device=device, **kwargs)
 
 

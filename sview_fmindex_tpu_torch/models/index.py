@@ -151,7 +151,8 @@ class FmIndex:
         none).  Keywords as ``DeviceFmIndex.from_host``: ``sa_full`` is the
         optional full (r=1) suffix array (uint32 array, raw file path, or
         ``"device"`` to reconstruct it on the device from the blob's sampled
-        SA, see ``build/sa_fill.py``)."""
+        SA, see ``build/sa_fill.py``).  The checkpoints and the stream and
+        pair tables are derived on ``device``, the CPU included."""
         from .device_index import DeviceFmIndex
 
         return DeviceFmIndex.from_host(self, device=device, **kwargs)

@@ -80,9 +80,8 @@ def _combine_planes(planes: torch.Tensor, symidx: torch.Tensor) -> torch.Tensor:
 
 def _plane_lanes(meta, rows: torch.Tensor) -> torch.Tensor:
     """rows int64 [..., W] -> plane lanes [..., num_planes, num_lanes]: the
-    row's last ``num_planes * num_lanes`` words (a fused row has none after
-    its checkpoints; a stream-layout row, which the pair gather reads, has
-    padding between them)."""
+    row's last ``num_planes * num_lanes`` words, which follow its
+    checkpoints."""
     width = meta.num_planes * meta.num_lanes
     return rows[..., rows.shape[-1] - width:].reshape(
         *rows.shape[:-1], meta.num_planes, meta.num_lanes)

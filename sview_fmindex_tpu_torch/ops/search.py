@@ -11,12 +11,8 @@ engines rank the range ends:
 - pair stream: sort-join passes over the sigma^2 pair table
   (``build/pair_table.py``), two pattern symbols per pass.  Uniform-length
   batches stay in sorted order across passes (``_ranges_chain``).
-- pair gather (``meta.pair_gather``): two pattern symbols per row gather
-  from the same pair table.
 """
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 import torch
@@ -128,12 +124,6 @@ def batch_facts(meta, lens, B: int, Lmax: int) -> tuple:
             lmin if lmin == lmax else None)
 
 
-def max_steps_needed(meta, lens, Lmax: int) -> int:
-    """Host-side LF-loop trip count: the most steps any lane needs."""
-    lens = np.asarray(lens)
-    return batch_facts(meta, lens, lens.size, Lmax)[0]
-
-
 def sym_back(sym: torch.Tensor, lens: torch.Tensor, seed_len: torch.Tensor, back):
     """Symbol ``back`` steps from the seed (back=0 is the first LF symbol);
     ``back`` is an int or a per-lane tensor.  The clamp keeps finished
@@ -161,11 +151,10 @@ def pos_ranges(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int,
     """Full backward search: (lo, hi) int64 [B] for every pattern lane of
     ``dev`` (a ``DeviceFmIndex``).
 
-    ``steps`` must be >= every lane's rem_steps (see max_steps_needed).
+    ``steps`` must be >= every lane's rem_steps (see ``batch_facts``).
     ``use_stream`` ranks through sort-join passes instead of row gathers;
     with the pair table resident (``meta.pair_rows``) and ``use_pair``,
-    each pass consumes two pattern symbols.  ``meta.pair_gather`` lets the
-    gather engine consume two symbols per row gather from the same table.
+    each pass consumes two pattern symbols.
     """
     meta = dev.meta
     sentinel = dev.sentinel
@@ -187,37 +176,25 @@ def pos_ranges(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int,
             return rank_next(meta, dev.fused, sentinel, pos, s)
 
     use_pair_stream = use_stream and use_pair and meta.pair_rows > 0 and steps >= 2
-    use_pair_gather = not use_stream and use_pair and meta.pair_gather and steps >= 2
     if use_pair_stream and fixed_len is not None and (all_dense or not meta.dense_k):
         # uniform length and seed: every lane takes exactly ``steps`` steps
         return _ranges_chain(dev, lo, hi, sym, fixed_len, steps)
 
-    if not (use_pair_stream or use_pair_gather):
+    if not use_pair_stream:
         for t in range(steps):
             lo, hi = lf_step(dev.count_arr, rank1, sym_at(t), lo, hi,
                              (t < rem_steps) & (lo < hi))
         return lo, hi
 
     sigma2 = sigma * sigma
-    if use_pair_stream:
-        def rank2(pos, c):
-            return sj.rank_next_sorted(dev.pair_tbl, sentinel, pos, c, sigma2)
-    else:
-        # the row-major pair table is also a gather table: blocks of 128
-        # positions, 4 lanes per plane, sigma^2 codes (the planes end each
-        # row, after the checkpoint's padding: ops.rank._plane_lanes)
-        meta2 = dataclasses.replace(meta, sigma=sigma2, block_len=sj.SBL,
-                                    num_planes=sj._planes_for(sigma2), num_lanes=sj.LANES)
-
-        def rank2(pos, c):
-            return rank_next(meta2, dev.pair_tbl, sentinel, pos, c)
     j_star, c_star = dev.pair_fix[0], dev.pair_fix[1]
 
     def pair_rank(pos, c):
         # one table entry's LF target is the sentinel row; its code is a
         # stand-in and must not be counted (build/pair_table.py)
         pq = pos + (pos < sentinel).long()
-        return rank2(pos, c) - ((c == c_star) & (pq > j_star)).long()
+        return (sj.rank_next_sorted(dev.pair_tbl, sentinel, pos, c, sigma2)
+                - ((c == c_star) & (pq > j_star)).long())
 
     for t in range(steps // 2):
         # a lane takes a pair step while >= 2 of its LF steps remain

@@ -199,7 +199,7 @@ class RangeShardedFmIndex:
                                       self.meta.sigma if self.passthrough else None)
         meta = self.meta
         # the trip count of the whole batch: every rank steps alike
-        steps = search_ops.max_steps_needed(meta, lens, patterns.shape[1])
+        steps = search_ops.batch_facts(meta, lens, lens.size, patterns.shape[1])[0]
         sym = search_ops.encode_patterns(self.enc_table, self._local(patterns))
         my_lens = local_lens(self.mesh, lens, self.dp_axis)
         lo, hi, rem_steps, seed_len = search_ops.initial_range(

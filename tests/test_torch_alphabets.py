@@ -273,19 +273,6 @@ def test_wildcard_dna_mixed_lengths():
         _assert_same(fm, tdev, jdev, pats, batch, lens, True, use_pair)
 
 
-def test_pair_gather_on_the_25_code_pair_table():
-    """``pair_gather``: the gather engine ranks two symbols per row of the
-    stream-layout pair table (192-byte rows, planes last) and agrees with the
-    JAX index and the oracle."""
-    ix = _build("wild5")
-    fm, jdev, text = ix["fm"], ix["jdev"], ix["text"]
-    gdev = to_device_torch(fm, "cpu", pair_gather=True, **ix["dense"])
-    assert gdev.meta.pair_gather and gdev.pair_tbl.shape[1] == tsj._rw(25) == 48
-    assert torch.equal(gdev.pair_tbl, ix["tdev"].pair_tbl)
-    pats, batch, lens = _batch(text, np.random.default_rng(12), [9, 10, 12], 200)
-    _assert_same(fm, gdev, jdev, pats, batch, lens, False)
-
-
 def test_stream_decode_walk_at_sigma_5_and_20():
     """No full SA: the LF walk decodes through the join's decode mode."""
     for name in ALPHABETS:

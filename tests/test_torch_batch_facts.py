@@ -92,8 +92,6 @@ def test_facts_from_lengths_equal_the_per_lane_formula(name, case):
     want = oracle(meta, lens, Lmax)
     for given in (lens, lens.astype(np.int64), lens.tolist()):
         assert search_ops.batch_facts(meta, given, len(lens), Lmax) == want, type(given)
-    assert search_ops.max_steps_needed(meta, lens, Lmax) == want[0]
-    assert search_ops.max_steps_needed(meta, lens.tolist(), Lmax) == want[0]
 
 
 # (B, L): no lengths given, every lane of length L
@@ -121,7 +119,6 @@ def test_facts_on_random_batches(name, seed):
         lens = rng.integers(lo, lo + int(rng.integers(1, 12)), B).astype(np.int32)
         want = oracle(meta, lens, Lmax)
         assert search_ops.batch_facts(meta, lens, B, Lmax) == want, (lens, Lmax)
-        assert search_ops.max_steps_needed(meta, lens, Lmax) == want[0]
 
 
 @pytest.mark.parametrize("lens_kind", [None, "numpy", "host-tensor", "list"])

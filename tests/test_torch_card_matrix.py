@@ -8,7 +8,7 @@ encoder, k and r.  Each configuration is uploaded narrow with every option
 of ``DeviceFmIndex.from_host`` (:data:`NARROW_VARIANTS`) and with
 ``force_wide`` (:data:`WIDE_VARIANTS`; 2-64 block segments, so the wide table
 spans several), once to the card with no device named and once to the CPU.
-Seven combinations of options (:data:`COMBOS`) run on two configurations.
+Four combinations of options (:data:`COMBOS`) run on two configurations.
 Each case holds:
 
 - the state: every tensor of the card upload equals the CPU upload's;
@@ -64,28 +64,19 @@ NARROW_VARIANTS = {
     "sa_device": (dict(sa_full="device", sa_fill_ratio=3, dense_lut_entries=None,
                        dense_host_entries=None), lambda s: True),
     "no_dense": (dict(dense_lut_entries=0), lambda s: True),
-    "host_stream": (dict(stream_derive=False), lambda s: True),
     "no_stream": (dict(stream=False), lambda s: True),
     "no_pair": (dict(pair=False), lambda s: s * s <= sj.MAX_SIGMA),
-    "pair_gather": (dict(pair_gather=True), lambda s: s * s <= sj.MAX_SIGMA),
     "sa_array": (dict(sa_full=None), lambda s: True),
     "sa_file": (dict(sa_full=None), lambda s: True),
-    # the fused table comes from the host (``ckpt_derive=False``), so
-    # ``derived_cache_dir`` has a table to cache on the card too
-    "cached": (dict(dense_lut_cache=None, derived_cache_dir=None, ckpt_derive=False),
-               lambda s: True),
+    "cached": (dict(dense_lut_cache=None), lambda s: True),
 }
 # options set together, each on COMBO_CONFIGS only (the card suite's time
 # is bounded): ``sa_full=None`` stands for the full SA as a given array
 COMBOS = {
-    "pair_gather_sa_device": dict(pair_gather=True, sa_full="device", sa_fill_ratio=1),
-    "pair_gather_no_dense": dict(pair_gather=True, dense_lut_entries=0),
-    "pair_gather_sa_array": dict(pair_gather=True, sa_full=None, ckpt_derive=True),
+    "sa_device_ratio_1": dict(sa_full="device", sa_fill_ratio=1),
     "no_stream_sa_device": dict(stream=False, sa_full="device"),
-    "no_pair_host_stream_sa_device": dict(pair=False, stream_derive=False, sa_full="device",
-                                          sa_fill_ratio=3),
+    "no_pair_sa_device": dict(pair=False, sa_full="device", sa_fill_ratio=3),
     "no_dense_sa_array_no_stream": dict(dense_lut_entries=0, sa_full=None, stream=False),
-    "host_stream_ckpt_sa_device": dict(stream_derive=False, ckpt_derive=True, sa_full="device"),
 }
 # the main path's configuration and wildcard DNA: both have pair tables
 COMBO_CONFIGS = ("seeded-dna_b3u64_k3r2", "seeded-wild_b3u64_k3r2")
@@ -95,8 +86,6 @@ WIDE_VARIANTS = {
     "no_stream": (dict(stream=False), lambda s: True),
     "no_dense": (dict(dense_lut_entries=0), lambda s: True),
 }
-# keywords of ``from_host`` no variant sets, with the reason
-EXEMPT = {"stream_tile": "the reference's TPU tile width: accepted and unused by the port"}
 # a committed blob goes up as users load it, with the device SA fill, and
 # wide; every variant runs on the seeded text of the same configuration,
 # whose tables span many more rows
@@ -104,7 +93,7 @@ CORPUS_VARIANTS = {(False, "default"), (False, "sa_device"), (True, "default")}
 # variants whose state is another variant's, built another way (held equal
 # to the CPU upload's tensor for tensor): their answers are asked on the
 # mixed batch (and the manifest's) only
-BUILT_ALIKE = {"host_stream", "sa_file", "cached"}
+BUILT_ALIKE = {"sa_file", "cached"}
 BATCH_B = 40  # patterns per drawn batch
 
 
@@ -313,8 +302,7 @@ def _variant_kwargs(cfg: dict, wide: bool, variant: str, tmp_path) -> dict:
     elif variant == "sa_file":
         kw["sa_full"] = cfg["sa_path"]
     elif variant == "cached":
-        kw.update(dense_lut_cache=str(tmp_path / "dense.npz"),
-                  derived_cache_dir=str(tmp_path / "derived"))
+        kw["dense_lut_cache"] = str(tmp_path / "dense.npz")
     if wide:
         kw["force_wide"] = True
     return kw
@@ -390,10 +378,9 @@ def cpu_answers(cfg: dict, cpu, dense_host, name: str, use_stream: bool) -> tupl
     """The CPU's answers to one batch on one engine, one run per distinct
     ``meta`` (engine, seed depth, tables, SA form) and host seed depth
     (``dense_host``: the ``dense_host_entries`` of the upload): options that
-    upload the same (the stream table derived on the host, a given SA array
-    or file, the caches) answer the same tensors, so one CPU run serves
-    them.  ``cpu``: this case's CPU upload, run if none of its kind has
-    been."""
+    upload the same (a given SA array or file, the dense cache) answer the
+    same tensors, so one CPU run serves them.  ``cpu``: this case's CPU
+    upload, run if none of its kind has been."""
     # the seed's host depth sets where empty ranges sit
     key = cpu.meta, dense_host, name, use_stream
     if key not in cfg["cpu_answers"]:
@@ -423,8 +410,8 @@ def test_card_matches_cpu_and_oracle(cuda, cfg_id, wide, variant, tmp_path, monk
     card, cpu = upload_pair(fm, kw, cuda)
     assert_same_state(card, cpu)
     if variant == "cached":
-        # a second upload reads both caches: building either again raises
-        assert os.listdir(kw["derived_cache_dir"])
+        # a second upload reads the dense cache: building it again raises,
+        # as does assembling a fused table on the host
         assert os.path.exists(kw["dense_lut_cache"]) == bool(card.meta.dense_k)
 
         def refuse(*a, **k):
@@ -458,8 +445,7 @@ def test_matrix_covers_every_case_and_upload_option():
     """Every corpus case is a configuration of the matrix, from its blob and
     from a seeded text, narrow and wide; the seeded text takes every
     variant that applies at its sigma; every keyword of ``from_host`` is set
-    by a variant (or exempt, with its reason), so an option added later
-    cannot miss the card."""
+    by a variant, so an option added later cannot miss the card."""
     ids = {p.id for p in PARAMS}
     for name, case in CASES.items():
         for src in SOURCES:
@@ -471,8 +457,7 @@ def test_matrix_covers_every_case_and_upload_option():
     keywords = set(inspect.signature(DI.DeviceFmIndex.from_host).parameters) - {"fm", "device"}
     set_by_variants = {k for v in (*NARROW_VARIANTS.values(), *WIDE_VARIANTS.values())
                        for k in v[0]} | {"force_wide"}
-    assert keywords - set(EXEMPT) == set_by_variants
-    assert set(EXEMPT) <= keywords
+    assert keywords == set_by_variants
     # every narrow variant runs at some sigma of the corpus, every wide one at all
     sigmas = {c["symbol_count"] for c in CASES.values()}
     for name, (_, applies) in NARROW_VARIANTS.items():

@@ -6,9 +6,8 @@ go through the port, the JAX ``DeviceFmIndex`` and the host oracle
 and odd step counts (the sorted pair chain with and without its sigma=4
 pass), mixed lengths (the pair loop), patterns shorter than k, wildcard
 bytes, both engines, and state carried over from the JAX index.  Without a
-full SA the LF walk decodes through the join (stream) or by gathers; with
-``pair_gather`` the gather engine ranks two symbols per row of the pair
-table.  Counts and located positions must be exactly equal.
+full SA the LF walk decodes through the join (stream) or by gathers.  Counts
+and located positions must be exactly equal.
 """
 import dataclasses
 import os
@@ -23,10 +22,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import sview_fmindex_tpu as fmx  # noqa: E402
-from sview_fmindex_tpu.models.device_index import DeviceFmIndex as JaxDeviceFmIndex  # noqa: E402
 from sview_fmindex_tpu.utils.patterns import pack_patterns  # noqa: E402
 from sview_fmindex_tpu_torch import BuildError, DeviceFmIndex, to_device_torch  # noqa: E402
-from sview_fmindex_tpu_torch.ops import search as tsearch  # noqa: E402
+from sview_fmindex_tpu_torch.models import device_index as DI  # noqa: E402
 from sview_fmindex_tpu_torch.ops import stream_join as tsj  # noqa: E402
 
 N = 4201  # sigma**7 <= 4*N, so dense_k reaches 7
@@ -134,11 +132,9 @@ def test_sa_full_array_memmap_walk_and_stale_guard(index, tmp_path):
 def test_upload_options(index, tmp_path):
     fm, tdev = index["fm"], index["tdev"]
     cache = str(tmp_path / "dense.npz")
-    # the second upload is served from the dense and fused caches the first wrote
-    devs = [to_device_torch(fm, "cpu", dense_lut_cache=cache,
-                            derived_cache_dir=str(tmp_path), **DENSE) for _ in range(2)]
-    assert os.path.exists(cache) and any(f.startswith("fused") for f in os.listdir(tmp_path))
-    devs.append(to_device_torch(fm, "cpu", ckpt_derive=True, stream_derive=False, **DENSE))
+    # the second upload is served from the dense cache the first wrote
+    devs = [to_device_torch(fm, "cpu", dense_lut_cache=cache, **DENSE) for _ in range(2)]
+    assert os.path.exists(cache)
     for dev in devs:
         for name in ("fused", "stream_tbl", "pair_tbl", "dense_lo", "dense_hi"):
             assert torch.equal(getattr(dev, name), getattr(tdev, name)), name
@@ -147,6 +143,24 @@ def test_upload_options(index, tmp_path):
     assert bare.engine_for(1 << 20, use_stream=True) == "gather"
     with pytest.warns(RuntimeWarning, match="budget"):
         assert not tdev._stream(tdev.STREAM_MAX_BATCH, True)
+
+
+def test_cpu_upload_derives_its_tables(index, monkeypatch):
+    """A CPU upload is the card's: it copies the plane columns and derives
+    the checkpoints, then the stream and pair tables, on the device; no
+    fused table is assembled on the host.  Its tables equal the fixture's
+    upload and the JAX index's (host-assembled on the CPU) fused table."""
+    fm, tdev, jdev = index["fm"], index["tdev"], index["jdev"]
+
+    def refuse(*a, **k):
+        raise AssertionError("a fused table was assembled on the host")
+
+    monkeypatch.setattr(DI, "narrow_fused_rows", refuse)
+    dev = to_device_torch(fm, "cpu", sa_full="device", **DENSE)
+    assert dev.meta == tdev.meta and dev.meta.pair_rows
+    for name in ("fused", "stream_tbl", "pair_tbl"):
+        assert torch.equal(getattr(dev, name), getattr(tdev, name)), name
+    np.testing.assert_array_equal(dev.fused.numpy(), np.asarray(jdev.fused).view(np.int32))
 
 
 def _spy(monkeypatch, module, name, record):
@@ -189,49 +203,6 @@ def test_stream_decode_walk(index, monkeypatch):
             np.testing.assert_array_equal(valid.numpy(), jv)
             np.testing.assert_array_equal(locs.numpy()[jv], jl[jv].astype(np.int64))
             np.testing.assert_array_equal(pids.numpy()[jv], jp[jv].astype(np.int64))
-
-
-def test_pair_gather(monkeypatch):
-    """``pair_gather=True`` in ``tests/test_pair_table.py``'s configuration
-    (1200 bp, no dense seeds, 10-bp patterns) and with mixed lengths (odd
-    leftover steps): the gather engine ranks two symbols per row of the
-    row-major pair table, and answers as the JAX pair-gather engine, the
-    single-symbol engine and the oracle do; so does state carried over from
-    the JAX index."""
-    rng = np.random.default_rng(5)
-    n = 1200
-    text = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n))
-    enc = fmx.EncodingTable.from_symbols([b"A", b"C", b"G", b"T"])
-    b = fmx.FmIndexBuilder(
-        n, 4, enc, position="u32", block=fmx.BLOCK3_U64,
-        suffix_array_config=fmx.SuffixArrayConfig.compressed(2),
-        lookup_table_config=fmx.LookupTableConfig.kmer_size(3), sa_backend="numpy")
-    fm = fmx.FmIndex.load(np.frombuffer(b.build(text), np.uint8), position="u32",
-                          block=fmx.BLOCK3_U64, encoder_kind="table")
-    jdev = JaxDeviceFmIndex.from_host(fm, pair_gather=True, dense_lut_entries=0)
-    tdev = to_device_torch(fm, "cpu", pair_gather=True, dense_lut_entries=0)
-    assert tdev.meta.pair_gather and jdev.meta.pair_gather
-    arrays = {f.name: np.asarray(getattr(jdev, f.name))
-              for f in dataclasses.fields(jdev) if f.name != "meta"}
-    rdev = DeviceFmIndex.from_reference(arrays, jdev.meta, device="cpu")
-    assert rdev.meta == tdev.meta
-    starts = rng.integers(0, n - 10, size=32)
-    uniform = [text[s:s + 10] for s in starts]
-    mixed = [text[s:s + m] for s, m in zip(starts, rng.integers(1, 11, size=32))]
-    pair_ranks = _spy(monkeypatch, tsearch, "rank_next", lambda meta, *a: meta.sigma)
-    for pats in (uniform, mixed):
-        batch, lens = pack_patterns(pats)
-        pair_ranks.clear()
-        c1 = tdev.count(batch, lens, use_stream=False, use_pair=False)
-        assert 16 not in pair_ranks
-        for dev in (tdev, rdev):
-            pair_ranks.clear()
-            c0 = dev.count(batch, lens, use_stream=False)
-            assert 16 in pair_ranks
-            assert torch.equal(c0, c1)
-            np.testing.assert_array_equal(
-                c0.numpy(), np.asarray(jdev.count(batch, lens, use_stream=False)))
-            _assert_same(fm, dev, jdev, pats, batch, lens, use_stream=False)
 
 
 def test_port_imports_no_jax():

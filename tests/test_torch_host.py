@@ -129,9 +129,39 @@ def _random_encoder(pkg, spec):
     return enc, enc.symbol_count()
 
 
+@pytest.fixture(scope="module")
+def jax_native_sais():
+    """The JAX package's SA-IS library, loadable before its first use here.
+
+    Its loader has g++ write straight to ``libsview_native.so``: a test
+    worker that loads the file while another worker is still writing it
+    fails, and the loader keeps that failure for the rest of its process.
+    Where the library is missing or did not load, it is compiled with the
+    package's own flags into a temporary file beside it, published whole by
+    ``os.replace``, and the loader is reset and asked again."""
+    from sview_fmindex_tpu.native import build_native as jbuild
+    from sview_fmindex_tpu.native import loader as jloader
+
+    out = os.path.join(jbuild.HERE, jbuild.OUTPUT)
+    if os.path.exists(out) and jloader._load() is not None:
+        return
+    tmp = os.path.join(jbuild.HERE, f"libsview_native.{os.getpid()}.tmp.so")  # *.so: ignored
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jbuild, "OUTPUT", os.path.basename(tmp))
+            os.replace(jbuild.build(verbose=False), out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    jloader._lib, jloader._load_failed = None, False
+    if jloader._load() is None:
+        pytest.fail(f"the JAX package's native SA-IS library {out} does not load")
+
+
 @pytest.mark.parametrize("name,spec,position,block,k,r,backend", RANDOM_CASES,
                          ids=[c[0] for c in RANDOM_CASES])
-def test_random_blob_byte_identical(name, spec, position, block, k, r, backend, tmp_path):
+def test_random_blob_byte_identical(name, spec, position, block, k, r, backend, tmp_path,
+                                    jax_native_sais):
     """Seeded random texts: the two builders' blobs and their full-SA side
     files are byte-identical, with either suffix-array backend."""
     if backend in ("native", None):

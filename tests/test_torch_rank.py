@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 import sview_fmindex_tpu as fmx  # noqa: E402
 from sview_fmindex_tpu.ops import rank as jrank  # noqa: E402
 from sview_fmindex_tpu_torch import to_device_torch  # noqa: E402
+from sview_fmindex_tpu_torch.models.device_index import narrow_fused_rows  # noqa: E402
 from sview_fmindex_tpu_torch.ops import rank as trank  # noqa: E402
 
 
@@ -36,22 +37,23 @@ BLOCKS = [(fmx.BLOCK2_U32, 2001), (fmx.BLOCK3_U64, 3003), (fmx.BLOCK3_U128, 4096
 
 @pytest.mark.parametrize("block,n", BLOCKS)
 def test_fused_and_derived_checkpoints_match_jax(block, n):
-    """Host-assembled and device-derived fused tables equal the JAX one,
-    including the final partial block's zero padding (which must not count
-    as symbol 0)."""
+    """The uploaded fused table (checkpoints derived on the device from the
+    plane columns) and the host-assembled one (``narrow_fused_rows``, which
+    range-sharded staging uses) equal the JAX one, including the final
+    partial block's zero padding (which must not count as symbol 0)."""
     fm, _ = _fm(n, block, n)
-    jdev = fm.to_device(dense_lut_entries=0, ckpt_derive=False, stream=False)
-    tdev = to_device_torch(fm, "cpu", dense_lut_entries=0, ckpt_derive=False, stream=False)
+    jdev = fm.to_device(dense_lut_entries=0, stream=False)  # host-assembled on the CPU
+    tdev = to_device_torch(fm, "cpu", dense_lut_entries=0, stream=False)
     want = np.asarray(jdev.fused).view(np.int32)
     np.testing.assert_array_equal(tdev.fused.numpy(), want)
-    derived = trank.derive_fused_device(tdev.meta, tdev.fused[:, 4:].contiguous(), n)
-    np.testing.assert_array_equal(derived.numpy(), want)
+    host = narrow_fused_rows(fm, tdev.meta.num_planes)
+    np.testing.assert_array_equal(host.view(np.int32), want)
 
 
 @pytest.mark.parametrize("block,n", BLOCKS)
 def test_rank_next_and_decode_match_jax_and_host(block, n):
     fm, rng = _fm(n, block, n + 1)
-    jdev = fm.to_device(dense_lut_entries=0, ckpt_derive=False, stream=False)
+    jdev = fm.to_device(dense_lut_entries=0, stream=False)
     tdev = to_device_torch(fm, "cpu", dense_lut_entries=0, stream=False)
     s = fm.sentinel_index
     # every edge: 0, the sentinel row and its neighbours, block borders, n

@@ -24,7 +24,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import sview_fmindex_tpu_torch as ft  # noqa: E402
-from sview_fmindex_tpu_torch.ops.search import max_steps_needed  # noqa: E402
+from sview_fmindex_tpu_torch.ops.search import batch_facts  # noqa: E402
 
 import torch_dist_harness as harness  # noqa: E402
 
@@ -131,7 +131,7 @@ def test_model_bytes_equal_the_codes_on_two_ranks(two_ranks):
         rs = rank["rs"]
         info = rs["info"]
         meta = types.SimpleNamespace(kmer_size=info["kmer_size"], dense_k=info["dense_k"])
-        steps = max_steps_needed(meta, lens, 20)
+        steps = batch_facts(meta, lens, len(lens), 20)[0]
         model = comm_bytes(len(lens), 2, 0, steps, info["fused_width"])
         assert rs["stats"][0]["all_reduce_calls"] == steps
         assert rs["stats"][0]["all_reduce_bytes"] == model["rs_count_all_reduce_bytes"]

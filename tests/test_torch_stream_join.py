@@ -145,9 +145,9 @@ def test_row_layout_never_straddles_a_64_byte_piece_more_than_it_must(sigma):
 
 @pytest.mark.parametrize("pair", [False, True], ids=["sigma4", "sigma16"])
 def test_gather_engine_reads_stream_layout_rows(indexes, pair):
-    """A stream-layout table is also a gather table (the pair gather reads
-    the pair table so): the planes end each row, whatever padding lies
-    before them.  Equal to the JAX package's sorted rank."""
+    """A stream-layout table is also a gather table: the planes end each
+    row, whatever padding lies before them.  Row-gather ranks over the
+    stream and pair tables equal the JAX package's sorted rank."""
     from sview_fmindex_tpu_torch.ops.rank import rank_next
 
     fm, jdev, tdev = indexes

@@ -119,7 +119,7 @@ def one_rank_parts(text_size: int, B: int, device, workdir: str) -> dict:
             range_shard.STATS[k] = 0
         rs.count(pats, lens)
         measured = dict(range_shard.STATS)
-        steps = search_ops.max_steps_needed(rs.meta, lens, PATTERN_LEN)
+        steps = search_ops.batch_facts(rs.meta, lens, B, PATTERN_LEN)[0]
         model = comm_bytes(B, 1, locs.shape[0], steps, rs.fused.shape[1])
         if measured["all_reduce_bytes"] != model["rs_count_all_reduce_bytes"]:
             raise RuntimeError(f"the model's range-shard bytes {model} differ from the "
