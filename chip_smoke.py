@@ -17,8 +17,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. device: a CUDA device is required (there is no CPU path); prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build: compiles the join kernel from ``sview_fmindex_tpu_torch/csrc``;
-   no instantiation may spill registers.
+2. build: compiles the join kernel and the gather engine's search kernel
+   from ``sview_fmindex_tpu_torch/csrc``; no instantiation may spill
+   registers.
 3. main path: blob (native SA-IS, cached under ``bench_cache/``), upload
    (seconds per phase), the filled SA checked against the blob's sampled SA
    and against a second fill from the same tables in slices of 2^20 chains
@@ -36,6 +37,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the pair table and decode on the stream table (the main path's launches),
    and rank on the stream table (``join_rank_sigma4``: the launch of the
    micro suite's ``rank`` group in phase 12, whose count it carries).
+   Before them the gather engine's kernel (``csrc/gather_search.cu``: the
+   seed and every LF step in one launch) against its plain version, the
+   per-step loop on the card, at B = 4096 and 32767 20-bp windows of the
+   main text: exactly equal, times in turns, the plain version's device
+   launches a call, and its bound from the bytes the search needs.
 5. wide: the main-path index is freed and the same blob is uploaded as a
    wide index (``force_wide=True``, dense_k 10 from the host, sampled SA),
    then the main path's batches go through the wide stream engine with the
@@ -236,7 +242,7 @@ CARD_SUITE_DEADLINE = 600  # seconds for phase 14's pytest child
 # phase 14: the port's card tests, and the alphabets no other phase sends
 # through an engine, which the matrix must launch the kernel at
 CARD_SUITE = ("tests/test_torch_card_matrix.py", "tests/test_torch_corpus.py",
-              "tests/test_torch_kernels.py")
+              "tests/test_torch_kernels.py", "tests/test_torch_gather_search.py")
 CARD_SUITE_SIGMAS = (9, 24, 40)
 WIDE_SCALE_DEADLINE = 1800  # seconds for the scale check at 4.5e9: it stages 18 GB of SA
 MICRO_BATCHES = "1000,4000,16000,65536,262144,1000000"
@@ -281,6 +287,12 @@ RAGGED_ROWS, RAGGED_SEG_ROWS = 40, 8
 DEVICE = "cuda"
 JOIN_SRC = "sview_fmindex_tpu_torch/csrc/join.cu"
 JOIN_TPU = "sview_fmindex_tpu/ops/stream_join.py:297"
+GATHER_SRC = "sview_fmindex_tpu_torch/csrc/gather_search.cu"
+# no TPU kernel: the JAX package's gather engine is jnp, fused by XLA under jit
+GATHER_TPU = "none (sview_fmindex_tpu/ops/search.py:152 pos_ranges, jnp under jit)"
+# the gather engine's kernel case: the serve-4k cell's batch, and the largest
+# batch the engine serves by default (DeviceFmIndex.STREAM_MIN_BATCH - 1)
+GATHER_BATCHES = (4096, 32767)
 AMINO = b"ARNDCQEGHILKMFPSTWYV"
 PROT_LENS = (10, 30)  # BASELINE config 4: mixed-length 10-30 aa patterns
 WILD_LENS = (20, 21)  # 20 bp: 4 pair passes after dense_k 12; 21 bp: + the odd sigma=5 pass
@@ -322,8 +334,11 @@ def ptxas_report(out: str) -> list[str]:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             t = re.search(r"(join_kernel)ILi(\d+)ELb([01])ELb([01])E", m.group(1))
+            g = re.search(r"(gather_search_kernel)ILi(\d+)ELi(\d+)E", m.group(1))
             name = (f"{t.group(1)}<P={t.group(2)},{'decode' if t.group(3) == '1' else 'rank'}"
-                    f"{',seg' if t.group(4) == '1' else ''}>" if t else m.group(1))
+                    f"{',seg' if t.group(4) == '1' else ''}>" if t
+                    else f"{g.group(1)}<P={g.group(2)},LANES={g.group(3)}>" if g
+                    else m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spill = f"spill {m.group(1)}/{m.group(2)} B"
@@ -336,17 +351,18 @@ def ptxas_report(out: str) -> list[str]:
 def build_phase() -> None:
     from sview_fmindex_tpu_torch import kernels
 
-    t0 = time.perf_counter()
-    kernels.join_lib()
-    if "join" not in kernels.BUILD_LOG:
-        log("[build] join kernel loaded from an earlier build in _build/ (no compiler log)")
-        return
-    secs, out = kernels.BUILD_LOG["join"]
-    report = ptxas_report(out)
-    log(f"[build] join kernel ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {secs:.2f} s), {len(report)} instantiations: {'; '.join(report)}")
-    check(report and all(r.endswith("spill 0/0 B") for r in report),
-          "a join kernel instantiation spills registers")
+    for name, load in (("join", kernels.join_lib), ("gather_search", kernels.gather_search_lib)):
+        t0 = time.perf_counter()
+        load()
+        if name not in kernels.BUILD_LOG:
+            log(f"[build] {name} kernel loaded from an earlier build in _build/ (no compiler log)")
+            continue
+        secs, out = kernels.BUILD_LOG[name]
+        report = ptxas_report(out)
+        log(f"[build] {name} kernel ready in {time.perf_counter() - t0:.2f} s "
+            f"(nvcc {secs:.2f} s), {len(report)} instantiations: {'; '.join(report)}")
+        check(report and all(r.endswith("spill 0/0 B") for r in report),
+              f"a {name} kernel instantiation spills registers")
 
 
 def get_text(size: int) -> np.ndarray:
@@ -658,6 +674,7 @@ def sa_order_check(torch, dev, text, tag: str, rng) -> None:
 
 
 def main_path(torch, ft) -> dict:
+    from sview_fmindex_tpu_torch.ops import search
     from sview_fmindex_tpu_torch.ops import stream_join as sj
     text = get_text(TEXT_SIZE)
     t0 = time.perf_counter()
@@ -666,6 +683,7 @@ def main_path(torch, ft) -> dict:
 
     sj.LAUNCHES.clear()
     sj.LAUNCHES_BY_SIGMA.clear()
+    search.LAUNCHES.clear()
     dev = upload(torch, ft, fm, "main", dense_lut_entries=1 << 28,
                  dense_host_entries=1 << 20, sa_full="device", sa_fill_ratio=4)
     upload_launches = dict(sj.LAUNCHES_BY_SIGMA)
@@ -685,20 +703,29 @@ def main_path(torch, ft) -> dict:
         batches[B] = dict(pats=pats_np, counts=counts, sets=sets)
     launches = dict(sj.LAUNCHES)
     by_sigma = dict(sj.LAUNCHES_BY_SIGMA)
-    per_call = {}
+    # the gather engine's kernel: the batches' parity gates (use_stream=False)
+    gather_launches = search.LAUNCHES["gather"]
+    per_call, gather_per_call = {}, {}
     patterns = torch.from_numpy(batches[BATCHES[-1]]["pats"]).to(DEVICE)
     for name, fn in (("count", dev.count), ("locate", dev.locate)):
         before = collections.Counter(sj.LAUNCHES_BY_SIGMA)
         fn(patterns, use_stream=True)
         per_call[name] = dict(collections.Counter(sj.LAUNCHES_BY_SIGMA) - before)
+        before = search.LAUNCHES["gather"]
+        fn(patterns, use_stream=False)
+        gather_per_call[name] = search.LAUNCHES["gather"] - before
     log(f"[main] join launches by (mode, sigma): at upload {upload_launches}; per call at "
         f"B={BATCHES[-1]}: {per_call}")
-    log(f"[main] kernel launches on the main path: {launches}; "
+    log(f"[main] kernel launches on the main path: {launches}; gather search kernel "
+        f"{gather_launches}, per gather-engine call at B={BATCHES[-1]}: {gather_per_call}; "
         f"first query {first_query_s:.1f} s after start")
     check(launches.get("rank", 0) > 0, "rank-mode join kernel never launched")
     check(launches.get("decode", 0) > 0, "decode-mode join kernel never launched")
+    check(gather_launches > 0, "the gather search kernel never launched on the main path")
+    check(all(n > 0 for n in gather_per_call.values()),
+          f"a gather-engine call launched no gather search kernel: {gather_per_call}")
     return dict(fm=fm, text=text, dev=dev, by_sigma=by_sigma, batches=batches,
-                dense_k=dev.meta.dense_k)
+                dense_k=dev.meta.dense_k, gather_per_call=gather_per_call)
 
 
 def time_join(torch, join_fn, plain_fn, args) -> dict:
@@ -825,6 +852,70 @@ def kernel_phase(torch, dev, by_sigma: dict) -> list[dict]:
     cases = [("join_rank", dev.pair_tbl, 16, False), ("join_decode", dev.stream_tbl, 4, True),
              ("join_rank_sigma4", dev.stream_tbl, 4, False)]
     return kernel_cases(torch, dev, rng, cases, by_sigma)
+
+
+def gather_search_phase(torch, dev, text, per_call: dict) -> list[dict]:
+    """The gather engine's kernel (``ops/search.gather_ranges_cuda``)
+    against its plain version, the per-step loop on the card
+    (``ops/search.gather_ranges``), on the main path's index: GATHER_BATCHES
+    20-bp windows of the text, exactly equal, then times in turns.  Launches
+    a call: the kernel's as the main path's gather-engine locate calls
+    launched it (``per_call``, read from ``ops/search.LAUNCHES``), and the
+    plain version's device kernels and copies in one profiled call.  Bound: the bytes the search needs (each
+    pattern's int64 symbols and length, its two dense seed words, one fused
+    row per LF step and range end, the two int64 ends out) over the card's
+    memory rate; the search is a chain of dependent row reads per end, so
+    latency, not that rate, bounds it at these batches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sview_fmindex_tpu_torch.models.device_index import _as_batch
+    from sview_fmindex_tpu_torch.ops import search
+
+    rng = np.random.default_rng(SEED + 23)
+    out = []
+    for B in GATHER_BATCHES:
+        starts = rng.integers(0, TEXT_SIZE - PATTERN_LEN, size=B)
+        pats = np.ascontiguousarray(text[starts[:, None] + np.arange(PATTERN_LEN)])
+        p, lens, steps, (all_dense, fixed_len) = _as_batch(dev.meta, pats, None, dev.device)
+        sym = search.encode_patterns(dev.enc_table, p)
+
+        def kernel():
+            return search.gather_ranges_cuda(dev, sym, lens, steps)
+
+        def plain():
+            return search.gather_ranges(dev, sym, lens, steps, all_dense, fixed_len)
+
+        (klo, khi), (plo, phi) = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max(int((klo - plo).abs().max()), int((khi - phi).abs().max()))
+        check(err == 0, f"gather_search B={B} differs from its plain version by {err}")
+        check(bool((khi > klo).all()), f"gather_search B={B}: a window of the text not found")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            plain()
+            torch.cuda.synchronize()
+        plain_launches = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                             for e in prof.events())
+        times = time_join(torch, kernel, plain, ())
+        row_bytes = dev.fused.shape[1] * 4
+        nbytes = B * (PATTERN_LEN * 8 + 8 + 2 * 4 + 2 * steps * row_bytes + 2 * 8)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = min(times["ms"], times["ms2"])
+        log(f"[kernel] gather_search B={B}: {steps} LF steps after dense_k "
+            f"{dev.meta.dense_k}, fused rows of {row_bytes} B: exact (max_abs_err 0); kernel "
+            f"{times['ms']:.4f}/{times['ms2']:.4f} ms in {per_call['locate']} launch(es) a "
+            f"main-path locate call, plain "
+            f"{times['plain_ms']:.4f}/{times['plain_ms2']:.4f} ms in {plain_launches} device "
+            f"kernels and copies; bound {bound_ms:.4f} ms by bytes ({nbytes} B), "
+            f"{bound_ms / ms:.3f} of the kernel's time: latency-bound (a chain of {steps} "
+            f"dependent row reads per end)")
+        out.append(dict(name=f"gather_search_b{B}", route="cuda", source=GATHER_SRC,
+                        replaces=GATHER_TPU, launches=per_call["locate"],
+                        plain_launches=plain_launches,
+                        max_abs_err=err, ms=ms,
+                        plain_ms=min(times["plain_ms"], times["plain_ms2"]),
+                        bound_ms=bound_ms, bound_by="bytes (latency-bound)", library_ms=None,
+                        bound_bytes=nbytes))
+    return out
 
 
 def wide_checks(torch, ft, fm, text, tag: str, batches: dict, dense_k: int = 10,
@@ -2153,7 +2244,9 @@ def smoke(torch, build) -> list[dict]:
     build_phase()
     main_res = main_path(torch, ft)
     parallel_one_rank_phase(torch, main_res)
-    kernels = kernel_phase(torch, main_res.pop("dev"), main_res["by_sigma"])
+    kernels = gather_search_phase(torch, main_res["dev"], main_res["text"],
+                                  main_res["gather_per_call"])
+    kernels += kernel_phase(torch, main_res.pop("dev"), main_res["by_sigma"])
     torch.cuda.empty_cache()
     fm, text = main_res["fm"], main_res["text"]
     wide_launches, _ = wide_checks(torch, ft, fm, text, "wide", main_res["batches"],

@@ -71,6 +71,23 @@ def join_lib() -> ctypes.CDLL:
     return lib
 
 
+def gather_search_lib() -> ctypes.CDLL:
+    """The gather engine's search kernel (``csrc/gather_search.cu``), built
+    on first use."""
+    lib = _libs.get("gather_search")
+    if lib is None:
+        lib = ctypes.CDLL(build("gather_search"))
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        # planes, lanes, sigma, fused, row_words, kmer_tbl, n_kmer, dense_lo,
+        # dense_hi, dense_k, kmer_size, count_arr, sentinel, sym, lens, B, L,
+        # steps, lo, hi, stream
+        lib.sview_gather_search.argtypes = [i32, i32, i32, p, i64, p, i64, p, p, i32, i32,
+                                            p, i64, p, p, i64, i64, i64, p, p, p]
+        lib.sview_gather_search.restype = ctypes.c_int
+        _libs["gather_search"] = lib
+    return lib
+
+
 def cuda_error(err: int) -> str:
     msg = join_lib().sview_cuda_error_string(err)
     return f"CUDA error {err} ({msg.decode() if msg else 'unknown'})"

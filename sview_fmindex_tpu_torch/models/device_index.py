@@ -204,7 +204,10 @@ class DeviceFmIndex:
         Every narrow upload, to the CPU as to a card, sends only the plane
         columns and derives the checkpoints on ``device``
         (``ops/rank.derive_fused_device``), then the stream and pair tables
-        from that fused table.
+        from that fused table.  A narrow upload to a card first builds the
+        gather engine's kernel (``csrc/gather_search.cu``; the phase
+        ``kernels``), so that no query pays the compiler, and last checks
+        once that the kernel takes the tables (``ops/search.check_gather_tables``).
         """
         device = resolve_device(device)
         if force_wide or fm.text_len >= 2**32:
@@ -254,6 +257,13 @@ class DeviceFmIndex:
             sigma, fm.kmer_size, dense_host_entries, text_len=fm.text_len),
             fm.kmer_size + 1)) if dk else 0
         phase = _PhaseClock(device)
+        if device.type == "cuda":
+            # the gather engine's kernel, built (once per source) before any
+            # query can need it
+            from .. import kernels
+
+            kernels.gather_search_lib()
+            phase("kernels")
         d_lo = d_hi = None
         if dk:
             if dense_lut_cache is not None:
@@ -330,12 +340,17 @@ class DeviceFmIndex:
                 meta, fused_dev, np.asarray(fm.count_array, dtype=np.int64),
                 sentinel, dlo_dev, dhi_dev, dk - dk_host)
         phase("dense_device")
-        return cls(fused=fused_dev, kmer_tbl=kmer_dev, dense_lo=dlo_dev,
-                   dense_hi=dhi_dev, count_arr=count_dev, sa=sa_dev,
-                   sentinel=sentinel, enc_table=enc_dev, stream_tbl=stream_dev,
-                   pair_tbl=pair_tbl, pair_c2=pair_c2, pair_fix=pair_fix,
-                   meta=meta, upload_phases=phase.phases,
-                   passthrough=is_passthrough(fm))
+        index = cls(fused=fused_dev, kmer_tbl=kmer_dev, dense_lo=dlo_dev,
+                    dense_hi=dhi_dev, count_arr=count_dev, sa=sa_dev,
+                    sentinel=sentinel, enc_table=enc_dev, stream_tbl=stream_dev,
+                    pair_tbl=pair_tbl, pair_c2=pair_c2, pair_fix=pair_fix,
+                    meta=meta, upload_phases=phase.phases,
+                    passthrough=is_passthrough(fm))
+        if device.type == "cuda":
+            # the gather engine's kernel takes these tables without a
+            # check a call
+            search_ops.check_gather_tables(index)
+        return index
 
     @classmethod
     def _from_host_wide(cls, fm, device: torch.device, stream: bool,

@@ -6,7 +6,10 @@ the short-pattern subtree range), optionally a dense table over all
 then every lane advances one LF step per iteration with done-masks.  Three
 engines rank the range ends:
 
-- gather: one fused-table row gather per end (``ops.rank``),
+- gather: one fused-table row gather per end (``ops.rank``); on a CUDA
+  device the whole search, seed and steps, is one launch of the kernel
+  ``csrc/gather_search.cu`` (:func:`gather_ranges_cuda`), and
+  :func:`gather_ranges` is its plain version, the CPU's path,
 - stream: sort-join passes over the sigma stream table (``ops.stream_join``),
 - pair stream: sort-join passes over the sigma^2 pair table
   (``build/pair_table.py``), two pattern symbols per pass.  Uniform-length
@@ -14,11 +17,19 @@ engines rank the range ends:
 """
 from __future__ import annotations
 
+import collections
+import ctypes
+
 import numpy as np
 import torch
 
+from .. import tracing
 from . import stream_join as sj
 from .rank import rank_next, u32
+
+# launches of the gather engine's kernel ("gather"), counted where it is
+# launched, so a run can show its gather engine went through it
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def encode_patterns(enc_table: torch.Tensor, patterns: torch.Tensor) -> torch.Tensor:
@@ -145,6 +156,103 @@ def lf_step(pre_tbl: torch.Tensor, rank, s: torch.Tensor, lo: torch.Tensor,
             torch.where(active, pre + ranks[B:], hi))
 
 
+def _step_loop(dev, rank1, sym, lens, lo, hi, rem_steps, seed_len, steps: int):
+    """``steps`` single-symbol LF steps of every lane still active."""
+    for t in range(steps):
+        lo, hi = lf_step(dev.count_arr, rank1, sym_back(sym, lens, seed_len, t), lo, hi,
+                         (t < rem_steps) & (lo < hi))
+    return lo, hi
+
+
+def gather_ranges(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int,
+                  all_dense: bool = False, fixed_len: int | None = None):
+    """The gather engine in plain PyTorch: seed, then ``steps`` LF steps,
+    each one fused-row gather per range end (``ops.rank.rank_next``).  The
+    CPU's path, and the plain version of :func:`gather_ranges_cuda`."""
+    meta = dev.meta
+    lo, hi, rem_steps, seed_len = initial_range(
+        meta, dev.kmer_tbl, dev.dense_lo, dev.dense_hi, sym, lens,
+        all_dense=all_dense, fixed_len=fixed_len)
+
+    def rank1(pos, s):
+        return rank_next(meta, dev.fused, dev.sentinel, pos, s)
+
+    return _step_loop(dev, rank1, sym, lens, lo, hi, rem_steps, seed_len, steps)
+
+
+def check_gather_tables(dev) -> None:
+    """Raise ValueError unless ``dev`` is an index the gather search kernel
+    takes: narrow, 1-6 planes of 1, 2 or 4 lanes, and its tables contiguous
+    on one device in the dtypes and widths the kernel reads.  Run once, by
+    ``DeviceFmIndex.from_host`` on a card; :func:`gather_ranges_cuda` then
+    checks only the batch."""
+    meta = dev.meta
+    if meta.wide_pos or not 1 <= meta.num_planes <= 6 or meta.num_lanes not in (1, 2, 4) \
+            or meta.block_len != 32 * meta.num_lanes:
+        raise ValueError(f"the gather search kernel serves narrow indexes of 1-6 planes of "
+                         f"1, 2 or 4 lanes, got {meta}")
+    device = dev.fused.device
+    tables = [("fused", dev.fused, torch.int32, 2), ("kmer_tbl", dev.kmer_tbl, torch.int64, 1),
+              ("count_arr", dev.count_arr, torch.int64, 1)]
+    if meta.dense_k:
+        tables += [("dense_lo", dev.dense_lo, torch.int32, 1),
+                   ("dense_hi", dev.dense_hi, torch.int32, 1)]
+    for name, t, dtype, dim in tables:
+        if t is None or t.device != device or t.dtype != dtype or t.dim() != dim \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of {dim} dimension(s) "
+                             f"on {device}")
+    width = meta.sigma + meta.num_planes * meta.num_lanes
+    if dev.fused.shape[1] != width:
+        raise ValueError(f"fused must be [n, {width}], got {list(dev.fused.shape)}")
+
+
+def gather_ranges_cuda(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int):
+    """:func:`gather_ranges` in one launch of ``csrc/gather_search.cu``:
+    (lo, hi) int64 [B], equal to it bit for bit, on an index that
+    :func:`check_gather_tables` passed.  The batch is checked before the
+    kernel's library is loaded; the kernel runs on the current stream and
+    is not waited for.  Each launch is counted in ``LAUNCHES["gather"]``
+    and, while a profiler records, as ``gather_kernel``."""
+    from .. import kernels
+
+    meta = dev.meta
+    device = sym.device
+    if not sym.is_cuda:
+        raise ValueError(f"the gather search kernel runs on a CUDA device, sym is on {device}")
+    if sym.dtype != torch.int64 or sym.dim() != 2 or not sym.is_contiguous():
+        raise ValueError(f"sym must be a contiguous int64 [B, L] tensor, got {sym.dtype} "
+                         f"{list(sym.shape)}{'' if sym.is_contiguous() else ', not contiguous'}")
+    B, L = sym.shape
+    if (lens.dtype != torch.int64 or lens.shape != (B,) or lens.device != device
+            or not lens.is_contiguous()):
+        raise ValueError(f"lens must be a contiguous int64 [{B}] tensor on {device}, got "
+                         f"{lens.dtype} {list(lens.shape)} on {lens.device}")
+    if dev.fused.device != device:
+        raise ValueError(f"the index is on {dev.fused.device}, the batch on {device}")
+    lo = torch.empty(B, dtype=torch.int64, device=device)
+    hi = torch.empty(B, dtype=torch.int64, device=device)
+    if B == 0:
+        return lo, hi
+    if L == 0:
+        raise ValueError("patterns of a batch of B > 0 lanes need at least one column")
+    lib = kernels.gather_search_lib()
+    dense = (dev.dense_lo.data_ptr(), dev.dense_hi.data_ptr()) if meta.dense_k else (None, None)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.sview_gather_search(
+            meta.num_planes, meta.num_lanes, meta.sigma, dev.fused.data_ptr(),
+            dev.fused.shape[1], dev.kmer_tbl.data_ptr(), dev.kmer_tbl.shape[0], *dense,
+            meta.dense_k, meta.kmer_size, dev.count_arr.data_ptr(), dev.sentinel,
+            sym.data_ptr(), lens.data_ptr(), B, L, steps, lo.data_ptr(), hi.data_ptr(),
+            ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"gather search kernel launch failed: {kernels.cuda_error(err)}")
+    LAUNCHES["gather"] += 1
+    tracing.count("gather_kernel")
+    return lo, hi
+
+
 def pos_ranges(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int,
                use_stream: bool = False, use_pair: bool = True,
                all_dense: bool = False, fixed_len: int | None = None):
@@ -154,8 +262,13 @@ def pos_ranges(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int,
     ``steps`` must be >= every lane's rem_steps (see ``batch_facts``).
     ``use_stream`` ranks through sort-join passes instead of row gathers;
     with the pair table resident (``meta.pair_rows``) and ``use_pair``,
-    each pass consumes two pattern symbols.
+    each pass consumes two pattern symbols.  Without it, a CUDA index runs
+    the gather engine's kernel.
     """
+    if not use_stream and dev.fused.is_cuda:
+        return gather_ranges_cuda(dev, sym, lens, steps)
+    if not use_stream:
+        return gather_ranges(dev, sym, lens, steps, all_dense, fixed_len)
     meta = dev.meta
     sentinel = dev.sentinel
     lo, hi, rem_steps, seed_len = initial_range(
@@ -168,23 +281,16 @@ def pos_ranges(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int,
     def sym_at(back):
         return sym_back(sym, lens, seed_len, back)
 
-    if use_stream:
-        def rank1(pos, s):
-            return sj.rank_next_sorted(dev.stream_tbl, sentinel, pos, s, sigma)
-    else:
-        def rank1(pos, s):
-            return rank_next(meta, dev.fused, sentinel, pos, s)
+    def rank1(pos, s):
+        return sj.rank_next_sorted(dev.stream_tbl, sentinel, pos, s, sigma)
 
-    use_pair_stream = use_stream and use_pair and meta.pair_rows > 0 and steps >= 2
+    use_pair_stream = use_pair and meta.pair_rows > 0 and steps >= 2
     if use_pair_stream and fixed_len is not None and (all_dense or not meta.dense_k):
         # uniform length and seed: every lane takes exactly ``steps`` steps
         return _ranges_chain(dev, lo, hi, sym, fixed_len, steps)
 
     if not use_pair_stream:
-        for t in range(steps):
-            lo, hi = lf_step(dev.count_arr, rank1, sym_at(t), lo, hi,
-                             (t < rem_steps) & (lo < hi))
-        return lo, hi
+        return _step_loop(dev, rank1, sym, lens, lo, hi, rem_steps, seed_len, steps)
 
     sigma2 = sigma * sigma
     j_star, c_star = dev.pair_fix[0], dev.pair_fix[1]

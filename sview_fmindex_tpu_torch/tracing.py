@@ -28,7 +28,9 @@ read brings to the host; not counted where the caller passes ``capacity``,
 since then nothing is read) and ``slots`` (the expand buffer's capacity, a
 host int on both paths), and in ``ops/locate.device_capacity``
 ``capacity_bytes`` (the bytes that capacity read copies to the host: 16,
-the two int64 sums; none where the caller passes ``capacity``).
+the two int64 sums; none where the caller passes ``capacity``), and in
+``ops/search.gather_ranges_cuda`` ``gather_kernel`` (1 for each launch of
+the gather engine's CUDA kernel, counted where ``LAUNCHES["gather"]`` is).
 """
 from __future__ import annotations
 
