@@ -108,25 +108,38 @@ def lf_walk(r: int, count_arr, sa, rows, valid, decode):
     is_sentinel) at every position (the narrow or wide decode, gather or
     sort-join).  ``sa`` is the sampled SA, or a function from sample indices
     to SA values (a range-sharded SA is gathered collectively).  Returns
-    int64 [capacity]."""
-    pos = rows
-    offset = torch.zeros_like(rows)
-    loc = torch.zeros_like(rows)
-    done = torch.zeros_like(valid)
-    while r > 1:
-        need = (pos % r != 0) & ~done & valid
-        tracing.count("syncs")
-        if not bool(need.any()):
-            break
-        rank, symidx, is_sent = decode(torch.where(need, pos, 0))
-        hit = need & is_sent
-        loc = torch.where(hit, offset, loc)
-        done = done | hit
-        step = need & ~is_sent
-        pos = torch.where(step, count_arr[symidx] + rank, pos)
-        offset = offset + step.long()
-    sampled = sa(pos // r) if callable(sa) else u32(sa[pos // r])
-    return torch.where(done, loc, sampled + offset)
+    int64 [capacity].
+
+    Traced (span ``fmindex.walk``, the loop and the final SA read), each
+    step test reads the count of live rows, one of the ``syncs``; a step
+    that decodes adds 1 to ``walk_steps``, its live rows to
+    ``walk_row_steps`` and the lanes it sends to ``decode`` to
+    ``walk_lanes``."""
+    with tracing.span("fmindex.walk"):
+        for key in ("walk_steps", "walk_row_steps", "walk_lanes"):
+            tracing.count(key, 0)
+        pos = rows
+        offset = torch.zeros_like(rows)
+        loc = torch.zeros_like(rows)
+        done = torch.zeros_like(valid)
+        while r > 1:
+            need = (pos % r != 0) & ~done & valid
+            tracing.count("syncs")
+            live = int(need.sum())
+            if not live:
+                break
+            tracing.count("walk_steps")
+            tracing.count("walk_row_steps", live)
+            tracing.count("walk_lanes", need.numel())
+            rank, symidx, is_sent = decode(torch.where(need, pos, 0))
+            hit = need & is_sent
+            loc = torch.where(hit, offset, loc)
+            done = done | hit
+            step = need & ~is_sent
+            pos = torch.where(step, count_arr[symidx] + rank, pos)
+            offset = offset + step.long()
+        sampled = sa(pos // r) if callable(sa) else u32(sa[pos // r])
+        return torch.where(done, loc, sampled + offset)
 
 
 def walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid,

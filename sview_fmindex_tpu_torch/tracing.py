@@ -13,7 +13,9 @@ cover a whole call; inside them ``fmindex.intake`` (the batch put on the
 index's device, its host facts), ``fmindex.search`` (encode, seed, every
 pass of every engine), ``fmindex.capacity`` (two sums of the counts reduced
 on the device and read on the host to size the locate buffer) and
-``fmindex.resolve`` (expand, then the SA gather or the LF walk).
+``fmindex.resolve`` (expand, then the SA gather or the LF walk); the LF walk
+(``ops/locate.lf_walk``: its steps and the final read of the sampled SA)
+opens ``fmindex.walk``, inside ``fmindex.resolve`` where a call walks.
 
 Counters: ``calls`` (``count`` and ``locate_with_counts`` calls),
 ``intake_bytes`` (the batch's patterns, and its lengths where the caller
@@ -30,7 +32,13 @@ host int on both paths), and in ``ops/locate.device_capacity``
 ``capacity_bytes`` (the bytes that capacity read copies to the host: 16,
 the two int64 sums; none where the caller passes ``capacity``), and in
 ``ops/search.gather_ranges_cuda`` ``gather_kernel`` (1 for each launch of
-the gather engine's CUDA kernel, counted where ``LAUNCHES["gather"]`` is).
+the gather engine's CUDA kernel, counted where ``LAUNCHES["gather"]`` is),
+and in ``ops/locate.lf_walk`` (all three keys there, from 0, whenever a
+walk ran) ``walk_steps`` (the steps that decode, one decode launch each),
+``walk_row_steps`` (the live rows summed over those steps: the LF steps the
+located rows take, fixed by the index and not by the implementation) and
+``walk_lanes`` (the lanes sent to decode, summed over the steps; today the
+whole row buffer each step).
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ recording nothing is counted and ``record_function`` is never entered; the
 answers are the same either way.  Three small indexes made from seeded numpy
 generators: DNA and protein with the full SA filled on the device, and DNA
 without it (the LF walk), whose step tests are counted against the host
-oracle's own walk.
+oracle's own walk, and whose ``walk_*`` counters appear only where it walks.
 """
 import json
 
@@ -157,6 +157,9 @@ def test_capacity_bytes_only_where_the_program_sizes_the_buffer(name, lens_kind)
     # the caller sized the buffer: nothing was read, so neither is counted
     assert "capacity_bytes" not in tracing.COUNTS and "rows" not in tracing.COUNTS
     assert tracing.COUNTS["slots"] == 4 * B
+    # the walk's counters only where the walk ran
+    walked = {"walk_steps", "walk_row_steps", "walk_lanes"} <= set(tracing.COUNTS)
+    assert walked == (name == "dna-walk")
 
 
 @pytest.mark.parametrize("op", ["count", "locate"])
@@ -202,6 +205,12 @@ def test_walk_adds_its_step_tests_to_the_syncs(lens_kind):
     assert walk > 2
     assert tracing.COUNTS["syncs"] == 1 + walk
     assert tracing.COUNTS["calls"] == 1
+    # every test but the last finds live rows and decodes them, through a
+    # buffer of all the slots
+    assert tracing.COUNTS["walk_steps"] == walk - 1
+    assert tracing.COUNTS["syncs"] == tracing.COUNTS["walk_steps"] + 2
+    assert tracing.COUNTS["walk_lanes"] == (walk - 1) * tracing.COUNTS["slots"]
+    assert 0 < tracing.COUNTS["walk_row_steps"] <= tracing.COUNTS["walk_lanes"]
 
 
 def test_passthrough_batch_on_the_device_is_read_once():
