@@ -17,9 +17,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. device: a CUDA device is required (there is no CPU path); prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build: compiles the join kernel and the gather engine's search kernel
-   from ``sview_fmindex_tpu_torch/csrc``; no instantiation may spill
-   registers.
+2. build: compiles the join kernel, the gather engine's search kernel and
+   the LF walk's kernel from ``sview_fmindex_tpu_torch/csrc``; no
+   instantiation may spill registers.
 3. main path: blob (native SA-IS, cached under ``bench_cache/``), upload
    (seconds per phase), the filled SA checked against the blob's sampled SA
    and against a second fill from the same tables in slices of 2^20 chains
@@ -49,9 +49,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    sets must equal the main path's.  Counters are zeroed before the upload:
    the segmented rank and decode modes must have launched.
 6. walk: the blob uploaded narrow with the sampled SA (no full SA), the
-   B=100k batch located with ``use_stream=True``: the LF walk decodes
-   through the decode mode, whose counter must rise, and the location sets
-   must equal the main path's.
+   B=100k batch located with ``use_stream=True``: the LF walk is the
+   kernel ``csrc/lf_walk.cu``, whose launch counter must rise, and the
+   location sets must equal the main path's.  Then the kernel against its
+   plain version (``ops/locate.lf_walk`` decoding through the join's
+   decode mode, the walk's path before the kernel) on an r = 32 index of the
+   main text, as ``dna20-1e8-sa32`` keeps it (the upload's sampled SA taken
+   every 16th entry): the B=1M batch's expand buffer, exactly equal, times
+   in turns, the walk's counts from both under a profiler (equal), and the
+   bound from the bytes of its work.
 7. segmented kernel: the segmented modes against their plain version on a
    seeded synthetic sigma=4 table of 2^25 + 2^20 rows (3 segments, keys
    beyond 2^32), 2M sorted keys including both sides of each segment
@@ -198,7 +204,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    2^24 counted (some must be), 4 of the 8 high scan patterns start there,
    and a third of the kernel keys lie in [n - 2^20, n].  Then the card is
    freed and the blob goes up again with its sampled SA: B=100k through the
-   stream-decode walk must answer as the full-SA upload did.
+   LF walk's kernel must answer as the full-SA upload did.
 
 No earlier phase was cut in depth to make room for later ones: on an NVIDIA
 H100 80GB HBM3 (700 W) phase 12 takes 70-235 s, phase 14 100-165 s, and
@@ -242,7 +248,8 @@ CARD_SUITE_DEADLINE = 600  # seconds for phase 14's pytest child
 # phase 14: the port's card tests, and the alphabets no other phase sends
 # through an engine, which the matrix must launch the kernel at
 CARD_SUITE = ("tests/test_torch_card_matrix.py", "tests/test_torch_corpus.py",
-              "tests/test_torch_kernels.py", "tests/test_torch_gather_search.py")
+              "tests/test_torch_kernels.py", "tests/test_torch_gather_search.py",
+              "tests/test_torch_walk_kernel.py")
 CARD_SUITE_SIGMAS = (9, 24, 40)
 WIDE_SCALE_DEADLINE = 1800  # seconds for the scale check at 4.5e9: it stages 18 GB of SA
 MICRO_BATCHES = "1000,4000,16000,65536,262144,1000000"
@@ -290,6 +297,10 @@ JOIN_TPU = "sview_fmindex_tpu/ops/stream_join.py:297"
 GATHER_SRC = "sview_fmindex_tpu_torch/csrc/gather_search.cu"
 # no TPU kernel: the JAX package's gather engine is jnp, fused by XLA under jit
 GATHER_TPU = "none (sview_fmindex_tpu/ops/search.py:152 pos_ranges, jnp under jit)"
+WALK_SRC = "sview_fmindex_tpu_torch/csrc/lf_walk.cu"
+# no TPU kernel: the JAX package's walk is a jnp loop over the Pallas join decode
+WALK_TPU = "none (sview_fmindex_tpu/ops/locate.py lf_walk, a jnp loop over the join decode)"
+WALK_RATIO = 32  # the walk kernel's case: dna20-1e8-sa32's SA sampling
 # the gather engine's kernel case: the serve-4k cell's batch, and the largest
 # batch the engine serves by default (DeviceFmIndex.STREAM_MIN_BATCH - 1)
 GATHER_BATCHES = (4096, 32767)
@@ -334,7 +345,7 @@ def ptxas_report(out: str) -> list[str]:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             t = re.search(r"(join_kernel)ILi(\d+)ELb([01])ELb([01])E", m.group(1))
-            g = re.search(r"(gather_search_kernel)ILi(\d+)ELi(\d+)E", m.group(1))
+            g = re.search(r"(gather_search_kernel|lf_walk_kernel)ILi(\d+)ELi(\d+)E", m.group(1))
             name = (f"{t.group(1)}<P={t.group(2)},{'decode' if t.group(3) == '1' else 'rank'}"
                     f"{',seg' if t.group(4) == '1' else ''}>" if t
                     else f"{g.group(1)}<P={g.group(2)},LANES={g.group(3)}>" if g
@@ -351,7 +362,8 @@ def ptxas_report(out: str) -> list[str]:
 def build_phase() -> None:
     from sview_fmindex_tpu_torch import kernels
 
-    for name, load in (("join", kernels.join_lib), ("gather_search", kernels.gather_search_lib)):
+    for name, load in (("join", kernels.join_lib), ("gather_search", kernels.gather_search_lib),
+                       ("lf_walk", kernels.lf_walk_lib)):
         t0 = time.perf_counter()
         load()
         if name not in kernels.BUILD_LOG:
@@ -964,23 +976,111 @@ def wide_checks(torch, ft, fm, text, tag: str, batches: dict, dense_k: int = 10,
     return launches, kernels
 
 
-def walk_phase(torch, ft, fm, text, main: dict) -> dict:
+def walk_phase(torch, ft, fm, text, main: dict) -> list[dict]:
+    from sview_fmindex_tpu_torch.ops import locate
     from sview_fmindex_tpu_torch.ops import stream_join as sj
 
     sj.LAUNCHES.clear()
+    locate.LAUNCHES.clear()
     dev = upload(torch, ft, fm, "walk", dense_lut_entries=1 << 28, dense_host_entries=1 << 20)
     check(not dev.meta.has_sa_full, "the walk phase needs the sampled SA")
     want = main["batches"][WALK_BATCH]
     counts, sets, _, _ = run_batch(torch, fm, dev, text, "walk", want["pats"], "pair-stream")
     check(np.array_equal(counts, want["counts"]), "walk counts != main path counts")
     check(np.array_equal(sets, want["sets"]), "walk location sets != main path ones")
-    launches = dict(sj.LAUNCHES)
     log(f"[walk] B={WALK_BATCH}: counts and location sets equal the main path's; "
-        f"kernel launches: {launches}")
-    check(launches.get("decode", 0) > 0, "the walk never launched the decode mode")
+        f"walk kernel launches {dict(locate.LAUNCHES)}, join launches {dict(sj.LAUNCHES)}")
+    check(locate.LAUNCHES["walk"] > 0, "the walk never launched its kernel")
+    check(not sj.LAUNCHES.get("decode"), "the walk launched the join's decode mode")
+    out = walk_kernel_case(torch, dev, main["batches"][BATCHES[-1]]["pats"])
     del dev
     torch.cuda.empty_cache()
-    return launches
+    return out
+
+
+def walk_kernel_case(torch, dev, pats_np) -> list[dict]:
+    """The LF walk's kernel (``ops/locate.walk_rows_cuda``) against its
+    plain version as the walk ran before it, ``ops/locate.lf_walk`` decoding
+    through the join's decode mode, on an r = WALK_RATIO index of the main
+    text (``dev``'s sampled SA taken every WALK_RATIO / r-th entry): the
+    expand buffer of ``pats_np`` (B=1M 20-bp windows), exactly equal on
+    every lane, times in turns, and the walk's counts from one traced call
+    of each, which must agree.  The launches a call are read from one
+    ``locate`` of the same batch through the r = WALK_RATIO index, the
+    main path's walk, and must be 1.  Bound: the bytes the kernel reads
+    and writes over the card's memory rate: one fused row (``row_words``
+    words, one 32-B sector at dna20) a row step, the row, its valid byte
+    and its answer (17 B) a lane of the buffer, and a sampled SA word a
+    located row.  ``fmbench/metrics/walk_roofline.locate.py`` counts a
+    layout-free 36 B a row step instead."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sview_fmindex_tpu_torch import tracing
+    from sview_fmindex_tpu_torch.ops import locate
+    from sview_fmindex_tpu_torch.ops import stream_join as sj
+
+    r0 = dev.meta.sampling_ratio
+    check(WALK_RATIO % r0 == 0, f"the walk upload's ratio {r0} does not divide {WALK_RATIO}")
+    sa32 = dataclasses.replace(dev, sa=dev.sa[::WALK_RATIO // r0].contiguous(),
+                               meta=dataclasses.replace(dev.meta, sampling_ratio=WALK_RATIO))
+    patterns = torch.from_numpy(pats_np).to(DEVICE)
+    B = patterns.shape[0]
+    lo, hi = sa32.pos_ranges(patterns, use_stream=True)
+    capacity, rows_located = locate.device_capacity(hi - lo)
+    rows, _, valid, _ = locate.expand_ranges(lo, hi, capacity)
+    args = (sa32.meta, sa32.fused, sa32.count_arr, sa32.sa, sa32.sentinel, rows, valid)
+
+    def kernel():
+        return locate.walk_rows_cuda(*args)
+
+    def decode(pos):
+        return sj.pre_rank_and_symidx_sorted(sa32.stream_tbl, sa32.sentinel, pos,
+                                             sa32.meta.sigma)
+
+    def plain():
+        return locate.lf_walk(WALK_RATIO, sa32.count_arr, sa32.sa, rows, valid, decode)
+
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = int((got - ref).abs().max())
+    check(err == 0, f"lf_walk B={B} differs from its plain version by {err}")
+    counted = []
+    for fn in (kernel, plain):
+        tracing.COUNTS.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counted.append({k: tracing.COUNTS[k] for k in ("walk_steps", "walk_row_steps",
+                                                       "walk_lanes", "syncs")})
+    plain_launches = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    kc, pc = counted
+    check(kc["walk_steps"] == pc["walk_steps"] and kc["walk_row_steps"] == pc["walk_row_steps"],
+          f"the kernel's walk counts {kc} differ from the plain walk's {pc}")
+    check(kc["walk_lanes"] == kc["walk_row_steps"] and kc["syncs"] == 1,
+          f"the kernel's lanes or syncs are off: {kc}")
+    locate.LAUNCHES.clear()
+    sa32.locate(patterns, use_stream=True)
+    per_call = locate.LAUNCHES["walk"]
+    check(per_call == 1, f"a locate call through the r={WALK_RATIO} index launched the walk "
+          f"kernel {per_call} times, not once")
+    times = time_join(torch, kernel, plain, ())
+    nbytes = 4 * sa32.fused.shape[1] * kc["walk_row_steps"] + 17 * capacity + 4 * rows_located
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = min(times["ms"], times["ms2"])
+    plain_ms = min(times["plain_ms"], times["plain_ms2"])
+    log(f"[kernel] lf_walk r={WALK_RATIO} B={B}: {rows_located} rows located, capacity "
+        f"{capacity}, {kc['walk_row_steps']} row steps, the longest {kc['walk_steps']}: exact "
+        f"(max_abs_err 0); kernel {times['ms']:.4f}/{times['ms2']:.4f} ms, {per_call} "
+        f"launch a locate call, plain (join decode) {times['plain_ms']:.4f}/"
+        f"{times['plain_ms2']:.4f} ms in {plain_launches} device kernels and copies, "
+        f"{pc['syncs']} syncs; bound {bound_ms:.4f} ms by bytes ({nbytes} B), "
+        f"{bound_ms / ms:.3f} of the kernel's time; x{plain_ms / ms:.1f} on the plain walk")
+    return [dict(name=f"lf_walk_r{WALK_RATIO}_b{B}", route="cuda", source=WALK_SRC,
+                 replaces=WALK_TPU, launches=per_call, plain_launches=plain_launches,
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by="bytes (latency-bound)", library_ms=None, bound_bytes=nbytes)]
 
 
 def segmented_kernel_phase(torch, launches: dict) -> list[dict]:
@@ -2191,9 +2291,12 @@ def narrow_text_phase(torch, ft, build) -> list[dict]:
     del dev
     torch.cuda.empty_cache()
 
-    # the walk: the sampled SA and the stream-decode LF walk
+    # the walk: the sampled SA and the LF walk's kernel
+    from sview_fmindex_tpu_torch.ops import locate
+
     sj.LAUNCHES.clear()
     sj.LAUNCHES_BY_SIGMA.clear()
+    locate.LAUNCHES.clear()
     dev = upload(torch, ft, fm, "narrow_walk", dense_lut_entries=1 << 28,
                  dense_host_entries=1 << 20)
     check(not dev.meta.wide_pos and not dev.meta.has_sa_full,
@@ -2203,11 +2306,11 @@ def narrow_text_phase(torch, ft, build) -> list[dict]:
                                    "pair-stream")
     check(np.array_equal(counts, want["counts"]), "walk counts != the full-SA upload's")
     check(np.array_equal(sets, want["sets"]), "walk location sets != the full-SA upload's")
-    walk_decodes = sj.LAUNCHES_BY_SIGMA[("decode", 4)]
     log(f"[narrow_walk] B={WALK_BATCH}: counts and location sets equal the full-SA upload's; "
-        f"kernel launches by (mode, sigma): {dict(sj.LAUNCHES_BY_SIGMA)}")
-    check(walk_decodes > 0, "the walk never launched decode@4")
-    kernels[1]["launches"] += walk_decodes
+        f"walk kernel launches {dict(locate.LAUNCHES)}, join launches by (mode, sigma): "
+        f"{dict(sj.LAUNCHES_BY_SIGMA)}")
+    check(locate.LAUNCHES["walk"] > 0, "the walk never launched its kernel")
+    check(not sj.LAUNCHES.get("decode"), "the walk launched the join's decode mode")
     del dev
     torch.cuda.empty_cache()
     return kernels
@@ -2251,7 +2354,7 @@ def smoke(torch, build) -> list[dict]:
     fm, text = main_res["fm"], main_res["text"]
     wide_launches, _ = wide_checks(torch, ft, fm, text, "wide", main_res["batches"],
                                    force_wide=True)
-    walk_phase(torch, ft, fm, text, main_res)
+    kernels += walk_phase(torch, ft, fm, text, main_res)
     kernels += segmented_kernel_phase(torch, wide_launches)
     kernels += hbm_kernel_phase(torch, main_res["by_sigma"])
     kernels += hi_ckpt_phase(torch, main_res["by_sigma"])

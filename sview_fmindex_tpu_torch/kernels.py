@@ -88,6 +88,21 @@ def gather_search_lib() -> ctypes.CDLL:
     return lib
 
 
+def lf_walk_lib() -> ctypes.CDLL:
+    """The LF walk's kernel (``csrc/lf_walk.cu``), built on first use."""
+    lib = _libs.get("lf_walk")
+    if lib is None:
+        lib = ctypes.CDLL(build("lf_walk"))
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        # planes, lanes, sigma, fused, row_words, count_arr, n_count, sa,
+        # sentinel, r, rows, valid, n, out, stats, stream
+        lib.sview_lf_walk.argtypes = [i32, i32, i32, p, i64, p, i64, p, i64, i64, p, p, i64,
+                                      p, p, p]
+        lib.sview_lf_walk.restype = ctypes.c_int
+        _libs["lf_walk"] = lib
+    return lib
+
+
 def cuda_error(err: int) -> str:
     msg = join_lib().sview_cuda_error_string(err)
     return f"CUDA error {err} ({msg.decode() if msg else 'unknown'})"

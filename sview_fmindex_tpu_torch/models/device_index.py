@@ -205,9 +205,11 @@ class DeviceFmIndex:
         columns and derives the checkpoints on ``device``
         (``ops/rank.derive_fused_device``), then the stream and pair tables
         from that fused table.  A narrow upload to a card first builds the
-        gather engine's kernel (``csrc/gather_search.cu``; the phase
-        ``kernels``), so that no query pays the compiler, and last checks
-        once that the kernel takes the tables (``ops/search.check_gather_tables``).
+        gather engine's kernel (``csrc/gather_search.cu``), and without a
+        full SA the LF walk's (``csrc/lf_walk.cu``), in the phase
+        ``kernels``, so that no query pays the compiler, and last checks
+        once that the gather kernel takes the tables
+        (``ops/search.check_gather_tables``).
         """
         device = resolve_device(device)
         if force_wide or fm.text_len >= 2**32:
@@ -220,6 +222,7 @@ class DeviceFmIndex:
             sa_full = None
         if isinstance(sa_full, str):
             sa_full = np.memmap(sa_full, dtype="<u4", mode="r")
+        has_sa_full = sa_full is not None or sa_device_fill
         if sa_full is not None:
             if sa_full.shape[0] != fm.text_len:
                 raise BuildError(
@@ -258,11 +261,14 @@ class DeviceFmIndex:
             fm.kmer_size + 1)) if dk else 0
         phase = _PhaseClock(device)
         if device.type == "cuda":
-            # the gather engine's kernel, built (once per source) before any
-            # query can need it
+            # the gather engine's kernel, and the LF walk's where no full SA
+            # will be resident, built (once per source) before any query can
+            # need them
             from .. import kernels
 
             kernels.gather_search_lib()
+            if not has_sa_full:
+                kernels.lf_walk_lib()
             phase("kernels")
         d_lo = d_hi = None
         if dk:
@@ -291,7 +297,7 @@ class DeviceFmIndex:
             num_lanes=kind.num_lanes, dense_k=dk,
             stream_rows=n_rows if use_stream_engine else 0,
             pair_rows=n_rows if use_pair else 0,
-            has_sa_full=(sa_full is not None) or sa_device_fill)
+            has_sa_full=has_sa_full)
 
         planes_host = np.ascontiguousarray(fm.lanes[:, :planes_eff, :]).reshape(n_blocks, -1)
         fused_dev = rank_ops.derive_fused_device(meta, _i32(planes_host, device), fm.text_len)
@@ -549,10 +555,10 @@ class DeviceFmIndex:
     def locate_with_counts(self, patterns, lens=None, capacity: int | None = None,
                            use_stream: bool | None = None, use_pair: bool = True):
         """(locs, pids, valid, counts, dropped), all int64 / bool tensors;
-        no host sync when ``capacity`` is given (a walk still syncs once per
-        step).  Without a ``capacity`` the buffer is sized from two sums of
-        the counts reduced on the device and read as 16 bytes
-        (``ops.locate.device_capacity``).  Traced, it counts the expand
+        no host sync when ``capacity`` is given (the plain walk, off a card,
+        still syncs once per step).  Without a ``capacity`` the buffer is
+        sized from two sums of the counts reduced on the device and read as
+        16 bytes (``ops.locate.device_capacity``).  Traced, it counts the expand
         buffer's ``slots``, and without a ``capacity`` the ``rows`` located
         and the ``capacity_bytes`` read to size it."""
         with tracing.span("fmindex.locate"):

@@ -7,11 +7,16 @@ FIRST occurrence row of pattern p (valid iff count >= 1), slots
 ``B..capacity`` the overflow (2nd+ occurrences), placed by a searchsorted
 over the overflow prefix sums.  Phase 3 resolves every row to a text
 location: one gather when the full (r=1) SA is resident, else the LF walk
-with the sentinel-row short-circuit (``locate/mod.rs:21-35``), decoding by
-fused-row gathers or through the join kernel's decode mode.  Output order
-is unspecified; consumers key on ``pat_ids``/``valid``.
+with the sentinel-row short-circuit (``locate/mod.rs:21-35``): on a card one
+launch of the kernel ``csrc/lf_walk.cu`` (:func:`walk_rows_cuda`), on the
+CPU :func:`lf_walk`, its plain version, decoding by fused-row gathers or
+through the join kernel's decode mode.  Output order is unspecified;
+consumers key on ``pat_ids``/``valid``.
 """
 from __future__ import annotations
+
+import collections
+import ctypes
 
 import numpy as np
 import torch
@@ -19,8 +24,12 @@ import torch
 from .. import tracing
 from . import stream_join as sj
 from .rank import pre_rank_and_symidx, u32
+from .search import check_kernel_tables
 
 _SAT_CAP = 0x7FFFFFFF
+# launches of the LF walk's kernel ("walk"), counted where it is launched,
+# so a run can show its walk went through it
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def _capacity(B: int, extra: int) -> int:
@@ -142,11 +151,70 @@ def lf_walk(r: int, count_arr, sa, rows, valid, decode):
         return torch.where(done, loc, sampled + offset)
 
 
+def walk_rows_cuda(meta, fused, count_arr, sa, sentinel, rows, valid):
+    """:func:`lf_walk` with the narrow decode (``ops/rank.pre_rank_and_symidx``)
+    in one launch of ``csrc/lf_walk.cu``: int64 [capacity], equal to it bit
+    for bit on every lane, invalid lanes included.  The rows and the tables
+    (:func:`ops.search.check_kernel_tables`, with ``count_arr`` and the
+    sampled SA ``sa``) are checked before the kernel's library is loaded;
+    the kernel runs on the current stream and is not waited for.
+
+    Span ``fmindex.walk``.  Each launch is counted in ``LAUNCHES["walk"]``
+    and, while a profiler records, as ``walk_kernel``; then the kernel also
+    gathers the decodes of all rows and of the row that took the most in a
+    buffer read once after the launch (one of the ``syncs``), counted as
+    ``walk_row_steps`` and ``walk_lanes`` (the decodes issued: one a row
+    step) and ``walk_steps`` (the plain loop's steps).  Without a profiler
+    the walk waits on nothing."""
+    from .. import kernels
+
+    if not rows.is_cuda:
+        raise ValueError(f"the LF walk kernel runs on a CUDA device, rows are on {rows.device}")
+    n = rows.shape[0]
+    for name, t, dtype in (("rows", rows, torch.int64), ("valid", valid, torch.bool)):
+        if (t.dtype != dtype or t.shape != (n,) or t.device != rows.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} [{n}] tensor on "
+                             f"{rows.device}, got {t.dtype} {list(t.shape)} on {t.device}")
+    if fused.device != rows.device:
+        raise ValueError(f"the index is on {fused.device}, the rows on {rows.device}")
+    check_kernel_tables("LF walk", meta, fused, [("count_arr", count_arr, torch.int64, 1),
+                                                 ("sa", sa, torch.int32, 1)])
+    with tracing.span("fmindex.walk"):
+        out = torch.empty_like(rows)
+        traced = tracing.recording()
+        stats = torch.zeros(2, dtype=torch.int64, device=rows.device) if traced else None
+        if n:
+            lib = kernels.lf_walk_lib()
+            with torch.cuda.device(rows.device):
+                stream = torch.cuda.current_stream(rows.device).cuda_stream
+                err = lib.sview_lf_walk(
+                    meta.num_planes, meta.num_lanes, meta.sigma, fused.data_ptr(),
+                    fused.shape[1], count_arr.data_ptr(), count_arr.shape[0], sa.data_ptr(),
+                    sentinel, meta.sampling_ratio, rows.data_ptr(), valid.data_ptr(), n,
+                    out.data_ptr(), None if stats is None else stats.data_ptr(),
+                    ctypes.c_void_p(stream))
+            if err:
+                raise RuntimeError(f"LF walk kernel launch failed: {kernels.cuda_error(err)}")
+            LAUNCHES["walk"] += 1
+            tracing.count("walk_kernel")
+        if traced:
+            tracing.count("syncs")
+            row_steps, longest = stats.tolist()
+            tracing.count("walk_steps", longest)
+            tracing.count("walk_row_steps", row_steps)
+            tracing.count("walk_lanes", row_steps)
+        return out
+
+
 def walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid,
               stream_tbl=None, use_stream: bool = False):
-    """LF walk on a narrow index: each step decodes through the join
-    kernel's decode mode over ``stream_tbl`` (``use_stream``) or by fused-row
-    gathers."""
+    """LF walk on a narrow index: on a card the kernel
+    (:func:`walk_rows_cuda`); else :func:`lf_walk`, each step decoding
+    through the join kernel's decode mode over ``stream_tbl``
+    (``use_stream``) or by fused-row gathers."""
+    if fused.is_cuda:
+        return walk_rows_cuda(meta, fused, count_arr, sa, sentinel, rows, valid)
     if use_stream:
         def decode(pos):
             return sj.pre_rank_and_symidx_sorted(stream_tbl, sentinel, pos, meta.sigma)

@@ -180,31 +180,39 @@ def gather_ranges(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int,
     return _step_loop(dev, rank1, sym, lens, lo, hi, rem_steps, seed_len, steps)
 
 
-def check_gather_tables(dev) -> None:
-    """Raise ValueError unless ``dev`` is an index the gather search kernel
-    takes: narrow, 1-6 planes of 1, 2 or 4 lanes, and its tables contiguous
-    on one device in the dtypes and widths the kernel reads.  Run once, by
-    ``DeviceFmIndex.from_host`` on a card; :func:`gather_ranges_cuda` then
-    checks only the batch."""
-    meta = dev.meta
+def check_kernel_tables(kernel: str, meta, fused: torch.Tensor, tables) -> None:
+    """Raise ValueError unless ``meta`` is a narrow index of 1-6 planes of
+    1, 2 or 4 lanes, ``fused`` its contiguous int32 [n, sigma + planes *
+    lanes] table, and each of ``tables`` (name, tensor, dtype, dimensions)
+    a contiguous tensor of that dtype on ``fused``'s device: the layout the
+    port's CUDA kernels over the fused table read (``kernel`` names the one
+    asking)."""
     if meta.wide_pos or not 1 <= meta.num_planes <= 6 or meta.num_lanes not in (1, 2, 4) \
             or meta.block_len != 32 * meta.num_lanes:
-        raise ValueError(f"the gather search kernel serves narrow indexes of 1-6 planes of "
+        raise ValueError(f"the {kernel} kernel serves narrow indexes of 1-6 planes of "
                          f"1, 2 or 4 lanes, got {meta}")
-    device = dev.fused.device
-    tables = [("fused", dev.fused, torch.int32, 2), ("kmer_tbl", dev.kmer_tbl, torch.int64, 1),
-              ("count_arr", dev.count_arr, torch.int64, 1)]
-    if meta.dense_k:
-        tables += [("dense_lo", dev.dense_lo, torch.int32, 1),
-                   ("dense_hi", dev.dense_hi, torch.int32, 1)]
-    for name, t, dtype, dim in tables:
+    device = fused.device
+    for name, t, dtype, dim in [("fused", fused, torch.int32, 2), *tables]:
         if t is None or t.device != device or t.dtype != dtype or t.dim() != dim \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} tensor of {dim} dimension(s) "
                              f"on {device}")
     width = meta.sigma + meta.num_planes * meta.num_lanes
-    if dev.fused.shape[1] != width:
-        raise ValueError(f"fused must be [n, {width}], got {list(dev.fused.shape)}")
+    if fused.shape[1] != width:
+        raise ValueError(f"fused must be [n, {width}], got {list(fused.shape)}")
+
+
+def check_gather_tables(dev) -> None:
+    """Raise ValueError unless ``dev`` is an index the gather search kernel
+    takes (:func:`check_kernel_tables`, with its k-mer, count and dense
+    tables).  Run once, by ``DeviceFmIndex.from_host`` on a card;
+    :func:`gather_ranges_cuda` then checks only the batch."""
+    tables = [("kmer_tbl", dev.kmer_tbl, torch.int64, 1),
+              ("count_arr", dev.count_arr, torch.int64, 1)]
+    if dev.meta.dense_k:
+        tables += [("dense_lo", dev.dense_lo, torch.int32, 1),
+                   ("dense_hi", dev.dense_hi, torch.int32, 1)]
+    check_kernel_tables("gather search", dev.meta, dev.fused, tables)
 
 
 def gather_ranges_cuda(dev, sym: torch.Tensor, lens: torch.Tensor, steps: int):

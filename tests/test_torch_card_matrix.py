@@ -20,9 +20,10 @@ Each case holds:
   occurrences, on both engines: the card's answers equal the CPU's tensor for
   tensor, and the host ``FmIndex``'s counts and sorted locations (and the
   manifest's);
-- the kernel: the join modes the case must run (rank on a stream call,
-  decode in the SA fill and the walk, their segmented modes on a wide
-  upload) launched on the card, and no other.
+- the kernels: the join modes the case must run (rank on a stream call,
+  decode in the SA fill, their segmented modes on a wide upload, there with
+  decode in the walk) launched on the card, and no other; the LF walk's
+  kernel launched where a narrow upload has no full SA, and only there.
 
 The answers' JAX half is held on the CPU tier (``test_torch_device_index.py``,
 ``test_torch_wide.py``, ``test_torch_alphabets.py``, ``test_torch_corpus.py``);
@@ -46,6 +47,7 @@ torch.set_num_threads(1)
 
 import sview_fmindex_tpu_torch as ft  # noqa: E402
 from sview_fmindex_tpu_torch.models import device_index as DI  # noqa: E402
+from sview_fmindex_tpu_torch.ops import locate as locate_ops  # noqa: E402
 from sview_fmindex_tpu_torch.ops import stream_join as sj  # noqa: E402
 
 CORPUS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -310,14 +312,20 @@ def _variant_kwargs(cfg: dict, wide: bool, variant: str, tmp_path) -> dict:
 
 def _expected_modes(fm, wide: bool, kw: dict) -> set:
     """The join modes a case launches: rank on every stream call, decode in
-    the SA fill and in the walk (sampled SA, r > 1), segmented when wide."""
+    the SA fill, segmented when wide, and there decode in the walk (sampled
+    SA, r > 1); a narrow walk is the walk's own kernel (:func:`_walks`)."""
     if not kw.get("stream", True):
         return set()
     sa = kw.get("sa_full")
-    decodes = (isinstance(sa, str) and sa == "device") or (sa is None and fm.sampling_ratio > 1)
     if wide:
         return {"rank_seg"} | ({"decode_seg"} if fm.sampling_ratio > 1 else set())
-    return {"rank"} | ({"decode"} if decodes else set())
+    return {"rank"} | ({"decode"} if isinstance(sa, str) and sa == "device" else set())
+
+
+def _walks(wide: bool, kw: dict) -> bool:
+    """Whether a case's locate calls launch the LF walk's kernel: a narrow
+    upload with no full SA, whatever its sampling ratio and engine."""
+    return not wide and kw.get("sa_full") is None
 
 
 # ----------------------------------------------------------------------
@@ -407,6 +415,7 @@ def test_card_matches_cpu_and_oracle(cuda, cfg_id, wide, variant, tmp_path, monk
         rows = sj.stream_rows(fm.text_len)
         monkeypatch.setattr(sj, "SEG_BLOCKS", 1 << max(0, (rows // 4).bit_length() - 1))
     before = collections.Counter(sj.LAUNCHES)
+    walks_before = locate_ops.LAUNCHES["walk"]
     card, cpu = upload_pair(fm, kw, cuda)
     assert_same_state(card, cpu)
     if variant == "cached":
@@ -439,6 +448,7 @@ def test_card_matches_cpu_and_oracle(cuda, cfg_id, wide, variant, tmp_path, monk
     torch.cuda.synchronize()
     launched = collections.Counter(sj.LAUNCHES) - before
     assert set(launched) == _expected_modes(fm, wide, kw), dict(launched)
+    assert (locate_ops.LAUNCHES["walk"] > walks_before) == _walks(wide, kw)
 
 
 def test_matrix_covers_every_case_and_upload_option():
